@@ -1,7 +1,9 @@
 """On-card smoke test of the PyTorch port (``nvfpcc_tpu_torch``).
 
 Builds the EDT kernel from ``nvfpcc_tpu_torch/csrc``, holds it against its
-plain PyTorch version on the card, then drives the serving path at the
+plain PyTorch version on the card (int16 and int32 lanes, empty and full
+grids, single corner voxels), times it at the main path's shapes beside its
+plain version and its bytes bound, then drives the serving path at the
 flagship width (ch=3, chanstr 8,16,8,8, 32^3 blocks, channel entropy mode,
 format-v4 pack) through the port's CLI on a synthetic vox10 cloud:
 
@@ -43,10 +45,25 @@ THH = "0.6"
 EDT_CASES = [  # (shape, radius) held exactly against the plain version
     ((16, 16, 16), 5), ((24, 32, 40), 9), ((8, 8, 256), 20), ((64, 64, 64), 55),
     ((256, 256, 256), 55), ((200, 256, 136), 63),
+    # int16 lanes at both ends, the generic radius, int32 lanes above R = 127
+    ((40, 48, 56), 1), ((136, 144, 152), 127), ((96, 80, 72), 111), ((136, 144, 152), 128),
+    ((200, 208, 216), 221),
 ]
+# empty and full grids, and a single voxel in each corner: (kind, shape, radius)
+EDT_SPECIAL = [("empty", (64, 72, 80), 55), ("full", (64, 72, 80), 63),
+               ("corners", (72, 64, 136), 55), ("corners", (72, 64, 136), 128),
+               ("empty", (40, 40, 40), 221)]
 # timed shapes: the vox10 sphere's grids transform (reported in the kernel
-# line) and one D1 direction of its eval
+# line) and one D1 direction of its eval; then R=27 at the first shape, to
+# show how the time scales with the window
 TIMED_EDT = [((688, 688, 688), 55), ((656, 656, 672), 63)]
+R_SCALING = ((688, 688, 688), 27)
+# the least time the card could take: the function reads 1 byte (occupancy)
+# and writes 4 (int32) per voxel, over the H100's published 3.35 TB/s. Its
+# operations (a lower-envelope EDT is O(1) integer work per voxel per axis)
+# take less than that at the card's integer rate, so bytes bound it.
+HBM_BYTES_PER_S = 3.35e12
+EDT_BYTES_PER_VOXEL = 5
 
 
 def fail(msg: str) -> None:
@@ -87,9 +104,22 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def special_grids(kind: str, shape) -> list:
+    if kind == "empty":
+        return [np.zeros(shape, bool)]
+    if kind == "full":
+        return [np.ones(shape, bool)]
+    grids = []
+    for i in range(8):
+        g = np.zeros(shape, bool)
+        g[tuple(-1 if i >> a & 1 else 0 for a in range(3))] = True
+        grids.append(g)
+    return grids
+
+
 def phase_kernel(torch, K) -> dict:
     """Build, then exact equality with the plain version, a brute-force spot
-    check, and the flagship-shape timing."""
+    check, and the timing at the main path's shapes."""
     t0 = time.time()
     lib = K.build_library()
     log(f"kernel build {time.time() - t0:.2f}s -> {os.path.relpath(lib, ROOT)}")
@@ -112,22 +142,50 @@ def phase_kernel(torch, K) -> dict:
             vox = rng.integers(0, shape, (16, 3))
             bf = np.minimum(brute_force_sq_dist(vox, np.argwhere(occ_np)), radius * radius + 1)
             got_np = got.cpu().numpy()[vox[:, 0], vox[:, 1], vox[:, 2]]
-            log(f"edt {shape} R={radius} p={density}: max|kernel-plain|={err}, "
-                f"brute-force probes equal={np.array_equal(got_np, bf)}")
+            log(f"edt {shape} R={radius} ({K.lane_bits(radius)}-bit lanes) p={density}: "
+                f"max|kernel-plain|={err}, brute-force probes equal={np.array_equal(got_np, bf)}")
             if err or not np.array_equal(got_np, bf):
                 fail(f"EDT kernel disagrees at {shape} R={radius} p={density}")
+    for kind, shape, radius in EDT_SPECIAL:
+        for occ_np in special_grids(kind, shape):
+            occ = torch.as_tensor(occ_np, device="cuda")
+            err = int((K.squared_edt_3d(occ, radius) - K.squared_edt_3d_ref(occ, radius)).abs().max())
+            max_err = max(max_err, err)
+            if err:
+                fail(f"EDT kernel disagrees on the {kind} grid {shape} R={radius}")
+        log(f"edt {kind} {shape} R={radius}: equal to the plain version")
     timed = []
-    for shape, radius in TIMED_EDT:
+    for shape, radius in TIMED_EDT + [R_SCALING]:
         occ = torch.as_tensor(np.random.default_rng(7).uniform(0, 1, shape) < 0.003, device="cuda")
-        ms = cuda_ms(lambda: K.squared_edt_3d(occ, radius), 5)
-        plain_ms = cuda_ms(lambda: K.squared_edt_3d_ref(occ, radius), 2)
-        if not torch.equal(K.squared_edt_3d(occ, radius), K.squared_edt_3d_ref(occ, radius)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = K.squared_edt_3d(occ, radius)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base + occ.numel()  # occ + out + scratch
+        if not torch.equal(got, K.squared_edt_3d_ref(occ, radius)):
             fail(f"EDT kernel disagrees at {shape} R={radius}")
-        log(f"edt {shape} R={radius}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        timed.append((ms, plain_ms))
+        del got
+        ms = cuda_ms(lambda: K.squared_edt_3d(occ, radius), 10)
+        plain_ms = cuda_ms(lambda: K.squared_edt_3d_ref(occ, radius), 2) if (shape, radius) != R_SCALING else None
+        ms2 = cuda_ms(lambda: K.squared_edt_3d(occ, radius), 10)
+        bound_ms = occ.numel() * EDT_BYTES_PER_VOXEL / HBM_BYTES_PER_S * 1e3
+        row = {"shape": list(shape), "radius": radius, "lanes": K.lane_bits(radius),
+               "ms": ms, "ms_again": ms2, "plain_ms": plain_ms,
+               "plain_over_kernel": plain_ms / ms if plain_ms else None,
+               "bound_ms": bound_ms, "share_of_bound": bound_ms / ms, "peak_bytes": peak}
+        log(f"edt {shape} R={radius}: kernel {ms:.3f} / {ms2:.3f} ms, plain "
+            f"{plain_ms if plain_ms is None else round(plain_ms, 3)} ms, bound {bound_ms:.3f} ms "
+            f"({100 * bound_ms / ms:.1f}% of it), peak {peak / 1e9:.3f} GB")
+        timed.append(row)
         del occ
         torch.cuda.empty_cache()
-    return {"max_abs_err": max_err, "ms": timed[0][0], "plain_ms": timed[0][1]}
+    log(f"edt 688^3: R=27 {timed[2]['ms']:.3f} ms vs R=55 {timed[0]['ms']:.3f} ms "
+        f"(ratio {timed[2]['ms'] / timed[0]['ms']:.3f})")
+    first = timed[0]
+    return {"max_abs_err": max_err, "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "timed": timed}
 
 
 def make_checkpoint(ckdir: str, n_blocks: int) -> None:
@@ -291,6 +349,7 @@ def main() -> int:
         "source": "nvfpcc_tpu_torch/csrc/edt.cu",
         "replaces": "nvfpcc_tpu/ops/pallas/edt_pallas.py:157",
         "launches": launches,
+        "launches_by_stage": {"grids": grids_launches, "eval": eval_launches},
         **kstats,
     }]}))
     print(json.dumps({"ok": True, "device": {

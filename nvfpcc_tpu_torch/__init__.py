@@ -15,10 +15,13 @@ mirrors the reference package's layout so each module has a counterpart:
 - ``utils``    — params <-> numpy trees, npz checkpoints.
 - ``cli`` / ``serve`` — ``grids | encode | decode | eval`` and the JSON-lines
   server.
+- ``coder``, ``octree``, ``io``, ``config``, ``utils.seeds`` — copies of the
+  JAX package's jax-free format modules (range coder, Huffman, octree, PLY,
+  configs, the seed stream), held byte-equal to the originals by
+  ``tests/test_torch_shared_copies.py``, so the two packages read and write
+  the same packs and checkpoints.
 
-Format contracts (the seed stream, coders, octree, PLY I/O, configs) are
-imported in place from the jax-free ``nvfpcc_tpu`` modules so the two packages
-read and write the same packs and checkpoints. Nothing here imports jax.
+Nothing here imports jax or ``nvfpcc_tpu``.
 """
 
 __version__ = "0.1.0"

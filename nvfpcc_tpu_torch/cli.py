@@ -24,16 +24,130 @@ import time
 
 import numpy as np
 
-from nvfpcc_tpu.cli import (
-    _DEFAULT_CH,
-    _DEFAULT_CHANSTR,
-    _add_model,
-    artifact_path,
-    ctx_post_break_even,
-    resolve_auto_encode,
-)
-from nvfpcc_tpu.io.ply import read_ply_points, write_ply_points
+from nvfpcc_tpu_torch.config import CodecConfig, ModelConfig
 from nvfpcc_tpu_torch.device import PLATFORMS, resolve_device
+from nvfpcc_tpu_torch.io.ply import read_ply_points, write_ply_points
+
+# The helpers from here to ``_DEFAULT_CHANSTR`` are copies of
+# ``nvfpcc_tpu/cli.py``'s (the artifact name, the model flags and the auto
+# gates decide what a pack holds); ``tests/test_torch_shared_copies.py``
+# holds them equal to the originals.
+
+
+def artifact_path(cloud: str, depth: int, level: int) -> str:
+    stem, _ = os.path.splitext(cloud)
+    return f"{stem}_d{depth}_l{level}_grids.npz"
+
+
+def _add_model(p: argparse.ArgumentParser) -> None:
+    # ch/chanstr default to None so encode can tell "user said nothing" (fill
+    # from the checkpoint metadata) apart from an explicit override
+    p.add_argument(
+        "--ch", type=int, default=None,
+        help="latent channels (default 3; encode reads the checkpoint)",
+    )
+    p.add_argument(
+        "--chanstr", type=str, default=None,
+        help="decoder channels (default 8,16,8,8; encode reads the checkpoint)",
+    )
+    p.add_argument(
+        "--entropy_mode",
+        choices=("auto", "channel", "spatio", "ctx", "ctx_ar", "gmm", "factorized"),
+        default="auto",
+        help="latent entropy model: per-channel (sigma,mu); per-position "
+        "(spatio); autoregressive masked-conv context prediction (ctx); "
+        "ctx plus same-position channel autoregression (ctx_ar); per-channel "
+        "2-component Gaussian mixture (gmm); per-channel factorized "
+        "logit-CDF MLP (factorized). 'auto' (default) picks the measured "
+        "best (RESULTS.md): train chooses per the measured decision table; "
+        "encode reads the mode from the checkpoint metadata, upgrading ctx "
+        "checkpoints with the post-hoc ctx_ar predictor fit (ctx_post) when "
+        "the measured symbol-count break-even predicts a net stream saving",
+    )
+    p.add_argument(
+        "--ctx_detach_pred", action="store_true",
+        help="ctx modes: stop the rate gradient at the context predictor's "
+        "input (training-time only; latents are then shaped by distortion + "
+        "their own rate, not by making later positions predictable)",
+    )
+    p.add_argument(
+        "--ctx_hidden", type=int, default=8,
+        help="ctx modes: masked-conv predictor hidden width (8 = reference "
+        "PredNet; travels in the pack model metadata)",
+    )
+    p.add_argument(
+        "--ctx_tail", type=int, default=None,
+        help="ctx_ar only: how many of the ctx_hidden units are payload-cheap "
+        "tail units (full ctx1 receptive field, center-only ctx2 taps — "
+        "~1/7 the transmitted taps per unit; travels in the pack model "
+        "metadata). Default: the checkpoint's trained value at encode, 0 at "
+        "train (every unit full-width)",
+    )
+
+
+# Measured ctx_post economics (results/round5/ctx_capacity2.json: exhaustive
+# post-hoc ctx_ar fits with REAL coded bits on the frozen vox11 l200
+# ctx-checkpoint latents under the production bf16 recipe, 127,824 symbols,
+# marginal 2.2856 b/sym): per (hidden, tail) candidate, the expected
+# latent-stream cut in bits/symbol vs the moment-fit marginal and the
+# transmitted-predictor payload in bits. h32t24 dominates every other row on
+# BOTH axes (largest cut at the smallest payload — the tail units code the
+# stream better AND cost ~1/7 the taps), so the gate effectively always
+# picks it; the dominated rows stay as measured documentation. The round-3
+# f32-recipe table (h8/h16/h32, marginal 3.869, cuts 0.21-0.34 b/sym —
+# results/round3/ctx_capacity_sweep.json) is retired: the bf16 trajectory
+# lands on far lower-entropy latents and the conditional cuts collapse ~2.5x
+# with it (RESULTS.md round 5). Single-cloud provenance: vox11-sphere
+# constants used as a break-even model, not re-measured per cloud (vox11
+# torus validation in results/round5/ctx_capacity2_torus.json); explicit
+# --entropy_mode/--ctx_hidden/--ctx_tail flags remain authoritative
+# overrides.
+CTX_POST_ECONOMICS = (
+    # (hidden, tail, expected stream cut b/sym, predictor payload bits)
+    (16, 0, 2.2856 - 2.2050, 13_408.0),
+    (32, 0, 2.2856 - 2.1904, 22_584.0),
+    (32, 16, 2.2856 - 2.1806, 12_896.0),
+    (32, 24, 2.2856 - 2.1582, 11_808.0),
+)
+
+
+def ctx_post_break_even(n_symbols: int):
+    """(predicted net stream saving in bits, best hidden width, best tail)
+    for a post-hoc ctx_ar upgrade of an n_symbols-latent pack. The saving
+    model is ``n_symbols * cut(h,t) - payload(h,t)`` over the measured
+    economics table; a non-positive best saving means the predictor payload
+    would cancel the stream gain (the measured vox10 outcome, RESULTS.md
+    E4). With the round-5 table the break-even edge is h32t24's
+    ~93k symbols."""
+    return max(
+        (n_symbols * cut - payload, h, t)
+        for h, t, cut, payload in CTX_POST_ECONOMICS
+    )
+
+
+def resolve_auto_encode(trained_mode: str, trained_hidden: int, n_symbols: int):
+    """`--entropy_mode auto` at encode time -> (entropy_mode, ctx_hidden,
+    ctx_tail, ctx_post). A ctx-family checkpoint is upgraded with the
+    post-hoc fitted channel-AR predictor when the measured break-even model
+    predicts a net stream saving at this cloud's symbol count
+    (:func:`ctx_post_break_even` — the quantity that actually decides the
+    trade; the round-3 ``level >= 6`` gate was a proxy for it and
+    misclassified small-but-deep or large-but-shallow clouds). Measured
+    anchors (round-5 table): vox11 sphere (127,824 symbols) predicts +4.5k
+    bits at h32t24 and measured +4.7k vs the marginal floor
+    (results/round5/ctx_capacity2.json); vox10 sphere (23,136 symbols)
+    predicts negative and measured canceled (E4). Channel-trained latents
+    are measured conditionally unpredictable (RESULTS.md round 3), so only
+    ctx-family checkpoints upgrade."""
+    if trained_mode in ("ctx", "ctx_ar"):
+        gain, hidden, tail = ctx_post_break_even(n_symbols)
+        if gain > 0:
+            return "ctx_ar", hidden, tail, True
+    return trained_mode, trained_hidden, 0, False
+
+
+_DEFAULT_CH = 3
+_DEFAULT_CHANSTR = "8,16,8,8"
 
 
 def load_or_build_artifacts(cloud: str, depth: int, level: int, device, log=print) -> dict:
@@ -98,7 +212,6 @@ def _load_train_state(args, n_blocks: int):
 
 
 def cmd_encode(args) -> int:
-    from nvfpcc_tpu.config import CodecConfig, ModelConfig
     from nvfpcc_tpu_torch import codec
 
     device = resolve_device(args.platform)

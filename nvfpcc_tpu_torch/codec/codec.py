@@ -24,11 +24,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from nvfpcc_tpu.coder import range_coder as RC
-from nvfpcc_tpu.config import CodecConfig, ModelConfig
 from nvfpcc_tpu_torch.codec import weights as W
+from nvfpcc_tpu_torch.coder import range_coder as RC
+from nvfpcc_tpu_torch.config import CodecConfig, ModelConfig
 from nvfpcc_tpu_torch.device import set_numerics
 from nvfpcc_tpu_torch.models import decoder as M
+from nvfpcc_tpu_torch.octree import partition as OT
 from nvfpcc_tpu_torch.utils.params import params_from_numpy
 
 PACK_FORMAT_VERSION = 4
@@ -38,8 +39,6 @@ RECON_BATCH = 128
 
 def encode_origins(origins: np.ndarray, depth: int, level: int) -> dict:
     """Origins payload as trimmed octree occupancy bits (round-trip checked)."""
-    from nvfpcc_tpu.octree import partition as OT
-
     s = OT.subtree_occupancy_string(np.asarray(origins, np.int64), depth, level - 1)
     payload = {"mode": "octree", "bits": OT.pack_occupancy_bits(s), "n_bits": len(s)}
     if not np.array_equal(decode_origins(payload, depth, level), np.asarray(origins, np.int64)):
@@ -49,8 +48,6 @@ def encode_origins(origins: np.ndarray, depth: int, level: int) -> dict:
 
 def decode_origins(payload, depth: int, level: int) -> np.ndarray:
     """Inverse of :func:`encode_origins`; also accepts the v1 raw-int16 form."""
-    from nvfpcc_tpu.octree import partition as OT
-
     if isinstance(payload, np.ndarray):  # format v1
         return np.asarray(payload, np.int64)
     s = OT.unpack_occupancy_bits(payload["bits"], payload["n_bits"])

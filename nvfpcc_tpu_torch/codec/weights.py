@@ -2,8 +2,8 @@
 ``nvfpcc_tpu/codec/weights.py``).
 
 Host numpy over params trees in the JAX layout, so packs are byte-compatible
-with the JAX package's. The coders themselves are shared
-(``nvfpcc_tpu.coder``). Modes: ``auto`` (the smaller of ``range_pl`` and
+with the JAX package's. The coders are the port's copies
+(``nvfpcc_tpu_torch.coder``). Modes: ``auto`` (the smaller of ``range_pl`` and
 ``range``, format v4), ``range_pl``, ``range``, and ``huffman`` (v1/v2
 packs). The ``gaussian`` weight mode waits for training (ROADMAP A7), which
 produces the trained weight-rate model it codes under.
@@ -15,8 +15,8 @@ from typing import Tuple
 
 import numpy as np
 
-from nvfpcc_tpu.coder import huffman
-from nvfpcc_tpu.coder import range_coder as RC
+from nvfpcc_tpu_torch.coder import huffman
+from nvfpcc_tpu_torch.coder import range_coder as RC
 from nvfpcc_tpu_torch.models.decoder import TRANSMITTED_KERNELS
 
 # as-is (fp32, uncoded) leaves of the decode tree: path -> copied verbatim

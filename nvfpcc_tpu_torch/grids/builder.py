@@ -145,7 +145,7 @@ def build_artifacts(
 ):
     """origins + gt + dist (the reference's three preprocessing artifacts);
     the distance field is always probe-checked against brute force."""
-    from nvfpcc_tpu.octree.partition import leaf_origins
+    from nvfpcc_tpu_torch.octree.partition import leaf_origins
 
     block = 1 << (depth - level)
     origins = leaf_origins(points, depth, level)

@@ -6,11 +6,13 @@ occupancy grid, every dim a multiple of 8, to int32 squared distances to
 the nearest occupied voxel, saturated at ``radius**2 + 1``.
 
 - A CUDA tensor goes to the hand-written kernel ``csrc/edt.cu`` (three
-  launches, one per axis; see the source for the design). It is compiled
-  with ``nvcc`` for ``sm_90a`` into a plain-C shared library under
-  ``nvfpcc_tpu_torch/_build/`` at first use, keyed by a hash of the sources,
-  and bound with ``ctypes``. A build or launch failure raises; there is no
-  fallback.
+  launches, one per axis: an O(1)-per-voxel row pass, then two register-
+  blocked min-plus passes on packed int16 lanes, or int32 lanes above
+  R = 127; see the source for the design). It is compiled with ``nvcc``
+  for ``sm_90a`` into a plain-C shared library under
+  ``nvfpcc_tpu_torch/_build/`` at first use, keyed by a hash of the
+  sources, and bound with ``ctypes``. A build or launch failure raises;
+  there is no fallback.
 - A CPU tensor goes to ``squared_edt_3d_ref``, the plain PyTorch version
   (a port of the XLA shift-and-min chain, ``nvfpcc_tpu/grids/edt.py``).
 
@@ -36,8 +38,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# shared tile of the strided passes: (64 + 2R) x 32 int32 <= 227 KB
-MAX_RADIUS = 800
+# shared tile of the strided passes: (256 + 2R) x 32 words <= 227 KB
+MAX_RADIUS = 780
+# the row pass keeps 12 bytes per 32 voxels of a row for each of its 8 warps
+MAX_ROW = 1 << 16
 
 LAUNCHES = 0
 
@@ -88,7 +92,7 @@ def _load() -> ctypes.CDLL:
             lib.nvfpcc_edt3d.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # occ, out, scratch
                 ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # D, H, W
-                ctypes.c_int,  # radius
+                ctypes.c_int, ctypes.c_int,  # radius, lane_bits
                 ctypes.c_void_p,  # stream
             ]
             lib.nvfpcc_edt_error_string.restype = ctypes.c_char_p
@@ -106,6 +110,12 @@ def _check(occ: torch.Tensor, radius: int) -> None:
         raise ValueError(f"radius must be in [1, {MAX_RADIUS}], got {radius}")
 
 
+def lane_bits(radius: int) -> int:
+    """Lane width of the kernel's strided passes at this radius: 16 when
+    every min-plus term (at most cap + R^2 = 2R^2 + 1) fits int16, else 32."""
+    return 16 if 2 * radius * radius + 1 <= 32767 else 32
+
+
 def squared_edt_3d(occ: torch.Tensor, radius: int) -> torch.Tensor:
     """Exact (window-clamped) squared EDT: the CUDA kernel for a CUDA tensor
     (bool or uint8, contiguous), the plain version for a CPU tensor."""
@@ -121,15 +131,16 @@ def squared_edt_3d(occ: torch.Tensor, radius: int) -> torch.Tensor:
     if not occ.is_contiguous():
         raise ValueError("occupancy must be contiguous")
     d, h, w = occ.shape
-    if d * h >= 2**31:
-        raise ValueError(f"grid {tuple(occ.shape)} has too many rows for one launch")
+    if d * h >= 2**31 or w > MAX_ROW or d > 65535:
+        raise ValueError(f"grid {tuple(occ.shape)} is too large for one launch")
     lib = _load()
+    bits = lane_bits(radius)
     out = torch.empty(occ.shape, dtype=torch.int32, device=occ.device)
-    scratch = torch.empty_like(out)
+    scratch = torch.empty(occ.shape, dtype=torch.int16 if bits == 16 else torch.int32, device=occ.device)
     with torch.cuda.device(occ.device):
         stream = torch.cuda.current_stream(occ.device).cuda_stream
         rc = lib.nvfpcc_edt3d(
-            occ.data_ptr(), out.data_ptr(), scratch.data_ptr(), d, h, w, radius, stream
+            occ.data_ptr(), out.data_ptr(), scratch.data_ptr(), d, h, w, radius, bits, stream
         )
     if rc != 0:
         raise RuntimeError(f"EDT kernel launch failed: {lib.nvfpcc_edt_error_string(rc).decode()}")

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from nvfpcc_tpu.utils import seeds
+from nvfpcc_tpu_torch.utils import seeds
 from nvfpcc_tpu_torch.ops import rate
 from nvfpcc_tpu_torch.ops.conv import IConv3d, QConv3d, QConvTranspose3d, make_qspec
 from nvfpcc_tpu_torch.ops.gdn import GDN

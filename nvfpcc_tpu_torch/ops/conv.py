@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nvfpcc_tpu.utils import seeds
+from nvfpcc_tpu_torch.utils import seeds
 from nvfpcc_tpu_torch.ops.ste import bypass_round16
 
 IQ = 16  # residuals live on the 1/16 grid: q=1 noise is U(-0.5, 0.5) / IQ

@@ -44,6 +44,60 @@ def test_empty_grid_saturates():
     assert (got == 10).all()
 
 
+def _two_scan_row_pass(occ: np.ndarray, radius: int) -> np.ndarray:
+    """What the kernel's row pass computes: ``d <= R ? d^2 : cap``, d the
+    distance to the nearest occupied voxel of the row, from a forward and a
+    backward scan of nearest-occupied positions."""
+    rows, n = occ.shape
+    far = 1 << 29
+    left, right = np.empty((rows, n), np.int64), np.empty((rows, n), np.int64)
+    carry = np.full(rows, -far)
+    for w in range(n):
+        carry = np.where(occ[:, w], w, carry)
+        left[:, w] = carry
+    carry = np.full(rows, far)
+    for w in range(n - 1, -1, -1):
+        carry = np.where(occ[:, w], w, carry)
+        right[:, w] = carry
+    d = np.minimum(np.arange(n) - left, right - np.arange(n))
+    return np.where(d <= radius, np.minimum(d, radius + 1) ** 2, radius * radius + 1)
+
+
+def _premise_rows(n: int) -> np.ndarray:
+    rng = np.random.default_rng(11)
+    rows = [rng.uniform(0, 1, (6, n)) < p for p in (0.01, 0.05, 0.3)]
+    edge = np.zeros((4, n), bool)
+    edge[0, 0] = edge[1, -1] = edge[2, [0, -1]] = True
+    edge[3, n // 2] = True
+    rows += [np.zeros((1, n), bool), np.ones((1, n), bool), edge, np.eye(n, dtype=bool)]
+    return np.concatenate(rows)
+
+
+@pytest.mark.parametrize("radius", [1, 3, 20, 55, 127, 200])
+def test_row_pass_premise_two_scan_equals_window(radius):
+    """The windowed min-plus pass over a 0/cap row equals the O(1)-per-voxel
+    nearest-occupied form the kernel's row pass uses, on random, empty and
+    full rows and with occupancy at both borders."""
+    occ = _premise_rows(96)
+    cap = radius * radius + 1
+    f = torch.full(occ.shape, cap, dtype=torch.int32)
+    f.masked_fill_(torch.as_tensor(occ), 0)
+    window = K._minplus_pass(f, 1, radius, cap).numpy()
+    np.testing.assert_array_equal(_two_scan_row_pass(occ, radius), window)
+
+
+@pytest.mark.parametrize("radius,bits", [(1, 16), (55, 16), (63, 16), (111, 16), (127, 16), (128, 32), (221, 32)])
+def test_lane_choice_fits_every_term(radius, bits):
+    """Every min-plus term of the strided passes is at most cap + R^2 =
+    2R^2 + 1: the chosen lane type holds it, and int16 is taken wherever it
+    does."""
+    assert K.lane_bits(radius) == bits
+    worst = 2 * radius * radius + 1
+    assert worst <= np.iinfo(np.int16 if bits == 16 else np.int32).max
+    assert (bits == 16) == (worst <= np.iinfo(np.int16).max)
+    assert radius <= K.MAX_RADIUS
+
+
 def test_wrapper_refusals():
     with pytest.raises(ValueError, match="multiples of 8"):
         squared_edt_3d(torch.zeros((10, 16, 16), dtype=torch.bool), 3)

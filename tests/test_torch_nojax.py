@@ -1,7 +1,10 @@
-"""The port runs without jax: every nvfpcc_tpu_torch module imports, and a
-toy decode runs on the CPU, in a process where importing jax fails."""
+"""The port runs without jax and without the JAX package: every
+nvfpcc_tpu_torch module imports, and a toy decode runs on the CPU, in a
+process where importing jax or ``nvfpcc_tpu`` fails; no source line of the
+port or of ``chip_smoke.py`` imports either."""
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -12,9 +15,13 @@ _SCRIPT = textwrap.dedent(
     """
     import importlib, pkgutil, sys
 
+    def blocked(name):
+        return (name == "jax" or name.startswith(("jax.", "jaxlib"))
+                or name == "nvfpcc_tpu" or name.startswith("nvfpcc_tpu."))
+
     class BlockJax:
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            if blocked(name):
                 raise ImportError(f"{name} is blocked")
 
     sys.meta_path.insert(0, BlockJax())
@@ -25,7 +32,7 @@ _SCRIPT = textwrap.dedent(
     from nvfpcc_tpu_torch import codec
     points, info = codec.decode(codec.load_pack("tests/fixtures/packs/pack_v1.pk"), "cpu")
     assert len(points) > 0 and info["n_blocks"] == 3
-    assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+    assert not any(blocked(m) for m in sys.modules)
     print("NOJAX_OK", len(names), len(points))
     """
 )
@@ -40,12 +47,33 @@ def test_port_imports_and_decodes_with_jax_blocked():
     assert "NOJAX_OK" in r.stdout
 
 
-def test_no_jax_import_in_the_port_sources():
-    pkg = os.path.join(ROOT, "nvfpcc_tpu_torch")
-    for dirpath, _, files in os.walk(pkg):
+# `import jax`, `from jax...`, `import nvfpcc_tpu[.x]`, `from nvfpcc_tpu[.x] import`;
+# not nvfpcc_tpu_torch
+_FORBIDDEN = re.compile(r"^(import jax|from jax|import nvfpcc_tpu(\.|\s|,|$)|from nvfpcc_tpu(\.|\s))")
+
+
+def _port_sources():
+    yield os.path.join(ROOT, "chip_smoke.py")
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "nvfpcc_tpu_torch")):
         for f in files:
             if f.endswith(".py"):
-                with open(os.path.join(dirpath, f)) as fh:
-                    for line in fh:
-                        s = line.strip()
-                        assert not s.startswith(("import jax", "from jax")), (f, s)
+                yield os.path.join(dirpath, f)
+
+
+def test_no_jax_import_in_the_port_sources():
+    sources = list(_port_sources())
+    assert len(sources) > 20
+    for path in sources:
+        with open(path) as fh:
+            for line in fh:
+                s = line.strip()
+                assert not _FORBIDDEN.match(s), (path, s)
+
+
+def test_forbidden_import_pattern():
+    for bad in ("import jax", "import nvfpcc_tpu", "import nvfpcc_tpu.cli", "from nvfpcc_tpu import cli",
+                "from nvfpcc_tpu.coder import huffman", "import nvfpcc_tpu as N"):
+        assert _FORBIDDEN.match(bad), bad
+    for ok in ("import nvfpcc_tpu_torch", "from nvfpcc_tpu_torch.coder import huffman",
+               "from nvfpcc_tpu_torch import codec", "import numpy as np"):
+        assert not _FORBIDDEN.match(ok), ok

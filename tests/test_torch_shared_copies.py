@@ -1,0 +1,215 @@
+"""The port's copies of the JAX package's jax-free format modules, held
+byte-equal (or value-equal) to their originals on seeded inputs: the range
+coder and Huffman coder, the octree partitioner (numpy and native paths),
+PLY I/O, the seed stream, the configs and the CLI's auto gates. A pack or a
+checkpoint written by either package must read the same in the other."""
+
+import argparse
+import dataclasses
+
+import numpy as np
+import pytest
+
+import nvfpcc_tpu.cli as jax_cli
+import nvfpcc_tpu.config as jax_config
+from nvfpcc_tpu.coder import huffman as jax_huffman
+from nvfpcc_tpu.coder import range_coder as jax_rc
+from nvfpcc_tpu.io import ply as jax_ply
+from nvfpcc_tpu.octree import native as jax_native
+from nvfpcc_tpu.octree import partition as jax_part
+from nvfpcc_tpu.utils import seeds as jax_seeds
+from nvfpcc_tpu_torch import cli as port_cli
+from nvfpcc_tpu_torch import config as port_config
+from nvfpcc_tpu_torch.coder import huffman as port_huffman
+from nvfpcc_tpu_torch.coder import range_coder as port_rc
+from nvfpcc_tpu_torch.io import ply as port_ply
+from nvfpcc_tpu_torch.octree import native as port_native
+from nvfpcc_tpu_torch.octree import partition as port_part
+from nvfpcc_tpu_torch.utils import seeds as port_seeds
+
+
+def _cloud(seed: int, n: int = 3000, depth: int = 7) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(0, 2 * np.pi, n)
+    c, r = (1 << depth) / 2, (1 << depth) * 0.35
+    pts = np.stack([c + r * np.cos(t), c + r * np.sin(t), c + 0.5 * r * np.sin(2 * t)], -1)
+    pts += rng.normal(0, 2.0, pts.shape)
+    return np.unique(np.clip(np.rint(pts), 0, (1 << depth) - 1).astype(np.int64), axis=0)
+
+
+# ---------------------------------------------------------------- range coder
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_range_coder_streams_byte_equal_and_cross_decode(seed):
+    rng = np.random.default_rng(seed)
+    ch = int(rng.integers(1, 6))
+    sigma = rng.uniform(0.05, 30.0, ch).astype(np.float32)
+    mu = rng.uniform(-5, 5, ch).astype(np.float32)
+    lat = np.rint(np.clip(rng.normal(mu, sigma * 3, (40, 2, 2, 2, ch)), -512, 512)).astype(np.float32)
+    cum_j = jax_rc.build_cum_tables(sigma, mu + jax_rc.OFFSET)
+    cum_p = port_rc.build_cum_tables(sigma, mu + port_rc.OFFSET)
+    np.testing.assert_array_equal(cum_p, cum_j)
+    pj, pp = jax_rc.encode_latents(lat, sigma, mu), port_rc.encode_latents(lat, sigma, mu)
+    assert pp["stream"] == pj["stream"] and pp["shape"] == pj["shape"]
+    np.testing.assert_array_equal(port_rc.decode_latents(pj), lat)
+    np.testing.assert_array_equal(jax_rc.decode_latents(pp), lat)
+    # the weight-stream tables (empirical histograms), raw symbols, table ids
+    counts = rng.integers(0, 50, (3, 33)) + (np.arange(33) == 16)
+    cum_c = port_rc.build_cum_from_counts(counts)
+    np.testing.assert_array_equal(cum_c, jax_rc.build_cum_from_counts(counts))
+    ids = rng.integers(0, 3, 500).astype(np.int32)
+    syms = rng.integers(0, 33, 500).astype(np.int32)
+    stream = port_rc.encode(syms, ids, cum_c)
+    assert stream == jax_rc.encode(syms, ids, cum_c)
+    np.testing.assert_array_equal(jax_rc.decode(stream, ids, cum_c), syms)
+    with port_rc.StreamingDecoder(stream) as dec:
+        got = np.concatenate([dec.decode(ids[:200], cum_c), dec.decode(ids[200:], cum_c)])
+    np.testing.assert_array_equal(got, syms)
+
+
+def test_range_coder_mixture_and_factorized_tables_equal():
+    rng = np.random.default_rng(3)
+    ch = 3
+    sigma = rng.uniform(0.2, 8.0, (2, ch)).astype(np.float32)
+    mu = rng.uniform(-3, 3, (2, ch)).astype(np.float32)
+    logit = rng.normal(0, 1, ch).astype(np.float32)
+    np.testing.assert_array_equal(
+        port_rc.build_cum_tables_gmm(sigma, mu, logit), jax_rc.build_cum_tables_gmm(sigma, mu, logit)
+    )
+    f = port_rc.FACTORIZED_FILTERS
+    params = {}
+    for i in range(len(f) - 1):
+        params[f"matrix_{i}"] = rng.normal(0, 1, (ch, f[i], f[i + 1])).astype(np.float32)
+        params[f"bias_{i}"] = rng.normal(0, 1, (ch, f[i + 1])).astype(np.float32)
+        params[f"factor_{i}"] = rng.normal(0, 1, (ch, f[i + 1])).astype(np.float32)
+    np.testing.assert_array_equal(
+        port_rc.build_cum_tables_factorized(params, ch),
+        jax_rc.build_cum_tables_factorized(params, ch),
+    )
+
+
+# -------------------------------------------------------------------- huffman
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_huffman_packs_byte_equal_and_cross_decode(seed):
+    rng = np.random.default_rng(seed)
+    tensors = [rng.integers(-6, 7, s) * (rng.uniform(0, 1, s) < 0.4) for s in ((3, 3, 3, 2, 4), (17,))]
+    pj, pp = jax_huffman.encode_tensors(tensors), port_huffman.encode_tensors(tensors)
+    assert pp["bit_stream"] == pj["bit_stream"]
+    assert pp["element_length"] == pj["element_length"] and pp["shape_list"] == pj["shape_list"]
+    for k in ("symbols", "lengths"):
+        np.testing.assert_array_equal(pp["codebook"][k], pj["codebook"][k])
+        assert pp["codebook"][k].dtype == pj["codebook"][k].dtype
+    for a, b in zip(port_huffman.decode_tensors(pj), tensors):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(jax_huffman.decode_tensors(pp), tensors):
+        np.testing.assert_array_equal(a, b)
+    # the pure-Python walk the original keeps beside its native decoder
+    cb = port_huffman.HuffmanCodebook.from_dict(pp["codebook"])
+    np.testing.assert_array_equal(
+        port_huffman._decode_py(pp["bit_stream"], cb, pp["element_length"]),
+        np.concatenate([t.reshape(-1) for t in tensors]),
+    )
+
+
+# --------------------------------------------------------------------- octree
+
+
+@pytest.mark.parametrize("use_native", [False, True])
+def test_octree_equal_on_numpy_and_native_paths(use_native):
+    pts = _cloud(5)
+    depth, level = 7, 3
+    if use_native:
+        assert port_native.available() and jax_native.available()
+        np.testing.assert_array_equal(
+            port_native.leaf_origins(pts, depth, level), jax_native.leaf_origins(pts, depth, level)
+        )
+        assert port_native.subtree_occupancy_string(pts, depth, level) == (
+            jax_native.subtree_occupancy_string(pts, depth, level)
+        )
+    want = jax_part.leaf_origins(pts, depth, level, use_native=use_native)
+    got = port_part.leaf_origins(pts, depth, level, use_native=use_native)
+    np.testing.assert_array_equal(got, want)
+    s = port_part.subtree_occupancy_string(pts, depth, level)
+    assert s == jax_part.subtree_occupancy_string(pts, depth, level)
+    trimmed = port_part.subtree_occupancy_string(got, depth, level - 1)
+    for leaf_children, string in ((True, s), (False, trimmed)):
+        np.testing.assert_array_equal(
+            port_part.occupancy_to_origins(string, depth, level, leaf_children),
+            jax_part.occupancy_to_origins(string, depth, level, leaf_children),
+        )
+    bits = port_part.pack_occupancy_bits(trimmed)
+    assert bits == jax_part.pack_occupancy_bits(trimmed)
+    assert port_part.unpack_occupancy_bits(bits, len(trimmed)) == trimmed
+
+
+# ------------------------------------------------------------------------ PLY
+
+
+@pytest.mark.parametrize("ascii_", [True, False])
+def test_ply_written_byte_equal_and_read_back(tmp_path, ascii_):
+    pts = _cloud(6).astype(np.float64) + np.random.default_rng(6).uniform(0, 1, (1, 3))
+    a, b = tmp_path / "jax.ply", tmp_path / "port.ply"
+    jax_ply.write_ply_points(str(a), pts, ascii=ascii_)
+    port_ply.write_ply_points(str(b), pts, ascii=ascii_)
+    assert a.read_bytes() == b.read_bytes()
+    np.testing.assert_array_equal(port_ply.read_ply_points(str(a)), jax_ply.read_ply_points(str(b)))
+
+
+# ---------------------------------------------------------------------- seeds
+
+
+@pytest.mark.parametrize("tag", [port_seeds.DEFAULT_TAG, "nvfpcc-tpu/other-stream"])
+def test_seed_streams_equal(tag):
+    assert port_seeds.DEFAULT_TAG == jax_seeds.DEFAULT_TAG
+    kj, kp = jax_seeds.base_key(tag), port_seeds.base_key(tag)
+    for index, label in ((0, "kernel"), (3, "bias"), ("deconv1", "noise")):
+        kj2 = jax_seeds.sub_key(jax_seeds.layer_key(kj, index), label)
+        kp2 = port_seeds.sub_key(port_seeds.layer_key(kp, index), label)
+        assert tuple(kp2) == tuple(kj2)
+        shape = (3, 3, 3, 2, 5)
+        np.testing.assert_array_equal(port_seeds.uniform(kp2, shape, -1, 2), jax_seeds.uniform(kj2, shape, -1, 2))
+        np.testing.assert_array_equal(
+            port_seeds.kaiming_uniform(kp2, shape, 54), jax_seeds.kaiming_uniform(kj2, shape, 54)
+        )
+        np.testing.assert_array_equal(
+            port_seeds.uniform_bias(kp2, (5,), 54), jax_seeds.uniform_bias(kj2, (5,), 54)
+        )
+
+
+# ------------------------------------------------------------ configs and CLI
+
+
+@pytest.mark.parametrize("name", ["ModelConfig", "CodecConfig"])
+def test_config_defaults_equal(name):
+    port, orig = getattr(port_config, name)(), getattr(jax_config, name)()
+    assert dataclasses.asdict(port) == dataclasses.asdict(orig)
+    if name == "ModelConfig":
+        assert port.channels == orig.channels
+
+
+def test_cli_auto_gates_equal():
+    assert port_cli.CTX_POST_ECONOMICS == jax_cli.CTX_POST_ECONOMICS
+    assert (port_cli._DEFAULT_CH, port_cli._DEFAULT_CHANSTR) == (
+        jax_cli._DEFAULT_CH, jax_cli._DEFAULT_CHANSTR,
+    )
+    modes = ("channel", "spatio", "ctx", "ctx_ar", "gmm", "factorized")
+    for n in (0, 1, 8_000, 23_136, 92_000, 93_500, 127_824, 10**6):
+        assert port_cli.ctx_post_break_even(n) == jax_cli.ctx_post_break_even(n)
+        for mode in modes:
+            for hidden in (8, 32):
+                assert port_cli.resolve_auto_encode(mode, hidden, n) == (
+                    jax_cli.resolve_auto_encode(mode, hidden, n)
+                )
+    assert port_cli.artifact_path("/a/b/cloud.ply", 10, 5) == jax_cli.artifact_path("/a/b/cloud.ply", 10, 5)
+
+
+def test_cli_model_flags_equal():
+    def flags(add):
+        p = argparse.ArgumentParser()
+        add(p)
+        return [(a.dest, a.default, a.choices, a.type, a.help) for a in p._actions]
+
+    assert flags(port_cli._add_model) == flags(jax_cli._add_model)
