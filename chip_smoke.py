@@ -19,6 +19,18 @@ a checkpoint and a snapshot exist and ``--resume`` runs one more epoch. It
 prints seconds per epoch for each phase, the split net steps / embedding
 update / eval (CUDA events) and the peak device memory.
 
+Then the context-model path (entropy modes ctx / ctx_ar) on the same grids:
+
+    train --entropy_mode ctx --emb_chunks 2 (1 epoch at q=1, 1 at q=2, bf16)
+    -> encode, auto (below the ctx_post break-even at vox10: a ctx pack with
+    the co-trained predictor) and explicit ctx_ar --ctx_post --ctx_hidden 32
+    --ctx_tail 24 (what auto picks at vox11) -> decode of each pack in a
+    second process, byte-equal to the encoder's cloud -> eval (D1)
+
+plus a decode of the JAX-made ctx pack ``pack_v3.pk`` against its golden
+latents. It prints the ctx epoch seconds, the fit's seconds and steps per
+second, and each pack's bpp split and ctx payload bits.
+
 Usage, from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--workdir DIR]
@@ -35,6 +47,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -302,30 +315,6 @@ def phase_train(torch, w, n_blocks: int) -> dict:
     return {"epoch_s_bf16": bf16_secs, "epoch_s_f32": f32_secs, "split": split, "peak_bytes": peak}
 
 
-def pick_threshold(torch, ckdir: str, n_points: int) -> float:
-    """A few epochs do not reach the default threshold: take the occupancy
-    level at which the checkpoint reconstructs about as many voxels as the
-    source has points (quantized weights, rounded latents, as encode does)."""
-    from nvfpcc_tpu_torch import codec
-    from nvfpcc_tpu_torch.codec import weights as W
-    from nvfpcc_tpu_torch.models import decoder as M
-    from nvfpcc_tpu_torch.utils import checkpoint as C
-    from nvfpcc_tpu_torch.utils.params import params_from_numpy
-
-    params, emb = C.load_checkpoint(C.latest_checkpoint(ckdir))
-    spec = M.build_model_spec(3, (8, 16, 8, 8))
-    qparams = W.quantize_residuals(params, 16)
-    net = params_from_numpy(M.init_params(spec), qparams).to("cuda")
-    with torch.no_grad():
-        lat = M.get_latent_code(net, torch.as_tensor(emb, device="cuda"))["quantized_latent"].cpu().numpy()
-    occ = torch.as_tensor(codec.reconstruct_all(codec.decoder_from_tree(spec, qparams, "cuda"), lat))
-    flat = occ.reshape(-1)
-    thh = float(torch.kthvalue(flat, flat.numel() - n_points).values)
-    log(f"occupancy after training: max {float(flat.max()):.4f}, mean {float(flat.mean()):.4f}; "
-        f"the default threshold 0.65 keeps {int((flat > 0.65).sum())} voxels")
-    return float(np.clip(np.floor(thh * 1e4) / 1e4, 0.01, 0.99))
-
-
 def phase_fixture(torch) -> None:
     """The JAX-made v1 pack decodes on the card, equal to a reconstruction
     from its golden arrays; the card's occupancy matches the CPU's."""
@@ -355,6 +344,128 @@ def phase_fixture(torch) -> None:
         fail("pack_v1 decode differs from the golden reconstruction")
     if not (np.isfinite(occ_gpu).all() and diff < 1e-4):
         fail(f"card reconstruction is off the CPU's by {diff}")
+
+
+def encode_numbers(out: str) -> dict:
+    """bpp split, pack size and ctx payload bits from an ``[encode]`` line."""
+    m = re.search(r"-> (\d+) B pack \| bpp ([\d.]+) \(latent ([\d.]+) net ([\d.]+) origins ([\d.]+)\) "
+                  r"\| recon (\d+) pts(?: \| ctx payload (\d+) bits)?", out)
+    if m is None:
+        fail("no [encode] summary line")
+    return {"pack_bytes": int(m[1]), "bpp": float(m[2]), "b_latent": float(m[3]), "b_net": float(m[4]),
+            "b_origins": float(m[5]), "n_points_rec": int(m[6]),
+            "ctx_payload_bits": int(m[7]) if m[7] else None}
+
+
+def decode_in_second_process(pack: str, rc_dec: str) -> float:
+    t = time.time()
+    dec = subprocess.run(
+        [sys.executable, "-m", "nvfpcc_tpu_torch.cli", "decode", pack, "--recon", rc_dec,
+         "--platform", "device"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900,
+    )
+    secs = time.time() - t
+    print(dec.stdout, end="")
+    if dec.returncode:
+        print(dec.stderr)
+        fail(f"decode process exited {dec.returncode}")
+    return secs
+
+
+def phase_ctx(torch, K, w, n_points: int, n_blocks: int) -> dict:
+    """The ctx family on the card: ctx training, then both encodes, each
+    pack decoded in a second process with ``rc_enc == rc_dec``, then eval.
+    Returns the path's numbers, with its EDT launches."""
+    from nvfpcc_tpu_torch.cli import read_ply_points
+    from nvfpcc_tpu_torch.tools.ctx_recipe import threshold_keeping
+    from nvfpcc_tpu_torch.utils import checkpoint as C
+
+    common = [w("sphere.ply"), "--depth", "10", "--level", "5", "--platform", "device"]
+    stats = {}
+    t = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    out = run_cli(["train", *common, "--entropy_mode", "ctx", "--emb_chunks", "2", "--epochs", "2",
+                   "--phase_change", "1", "--eval_every", "1", "--checkpoint_dir", w("ckpt_ctx"),
+                   "--metrics", w("train_ctx.jsonl")])
+    stats["train_s"] = time.time() - t
+    stats["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rows = train_rows(w("train_ctx.jsonl"))
+    if [(r["epoch"], r["q"]) for r in rows] != [(0, 1), (1, 2)] or not all(np.isfinite(r["loss"]) for r in rows):
+        fail(f"ctx train rows: {rows}")
+    stats["epoch_s"] = epoch_seconds(out)
+    params, emb, meta = C.load_checkpoint_meta(os.path.join(w("ckpt_ctx"), "0001.npz"))
+    if meta["entropy_mode"] != "ctx" or emb.shape != (n_blocks, 2, 2, 2, 3):
+        fail(f"ctx checkpoint meta {meta}, embeddings {emb.shape}")
+    moved = {n: float(np.abs(params["entropy"][n]["kernel"]).max()) for n in ("ctx1", "ctx2")}
+    if not all(v > 0 for v in moved.values()):
+        fail(f"the ctx predictor did not train: {moved}")
+    log(f"ctx train: epochs {stats['epoch_s']} s (q=1, q=2; bf16, embedding update in 2 chunks), "
+        f"losses {[round(r['loss'], 1) for r in rows]}, b_latent {[round(r['b_latent'], 4) for r in rows]}, "
+        f"largest ctx residual {moved}, peak {stats['train_peak_gb']:.2f} GB")
+
+    thh = threshold_keeping(w("ckpt_ctx"), n_points, "cuda")
+    packs = {
+        "auto": [],
+        "ctx_post": ["--entropy_mode", "ctx_ar", "--ctx_post", "--ctx_hidden", "32", "--ctx_tail", "24",
+                     "--ctx_fit_steps", "500"],
+    }
+    for name, flags in packs.items():
+        pack, enc, dec = w(f"pack_{name}.pk"), w(f"rc_enc_{name}.ply"), w(f"rc_dec_{name}.ply")
+        t = time.time()
+        out = run_cli(["encode", *common, "--load_checkpoint", w("ckpt_ctx"), "--pack_fn", pack, "--recon", enc,
+                       "--thh", str(thh), *flags])
+        row = {"thh": thh, "encode_s": time.time() - t, **encode_numbers(out)}
+        if name == "auto" and "auto -> ctx (from checkpoint; ctx_post break-even not met" not in out:
+            fail("encode auto on the vox10 ctx checkpoint did not keep the plain ctx pack")
+        if name == "ctx_post":
+            fit = re.search(r"\[ctx_fit\] (\d+) steps in ([\d.]+)s \(([\d.]+) steps/s\)", out)
+            if fit is None:
+                fail("the ctx_post fit did not report its steps")
+            row.update(fit_steps=int(fit[1]), fit_s=float(fit[2]), fit_steps_per_s=float(fit[3]),
+                       fit_log=[ln for ln in out.splitlines() if ln.startswith("[ctx_fit]")])
+        row["decode_s"] = decode_in_second_process(pack, dec)
+        with open(enc, "rb") as a, open(dec, "rb") as b:
+            row["parity"] = a.read() == b.read()
+        n_rec = len(read_ply_points(dec))
+        log(f"ctx {name}: " + json.dumps({k: v for k, v in row.items() if k != "fit_log"}))
+        if not row["parity"] or n_rec == 0 or row["ctx_payload_bits"] is None:
+            fail(f"ctx {name}: rc_enc != rc_dec across processes, an empty cloud, or no ctx payload")
+        stats[name] = row
+
+    before = K.LAUNCHES
+    t = time.time()
+    out = run_cli(["eval", w("sphere.ply"), w("rc_dec_ctx_post.ply"), "--depth", "10", "--platform", "device"])
+    stats["eval_s"] = time.time() - t
+    stats["eval_launches"] = K.LAUNCHES - before
+    m = re.search(r"D1 PSNR ([\d.]+|inf)", out)
+    if stats["eval_launches"] < 1 or m is None:
+        fail("ctx eval did not run the EDT kernel")
+    stats["d1_psnr"] = float(m[1])
+    log(f"ctx eval: D1 {stats['d1_psnr']} dB, EDT launches {stats['eval_launches']}")
+    return stats
+
+
+def phase_ctx_fixture(torch) -> None:
+    """The JAX-made ctx pack (format v3) decodes on the card: latents equal
+    to its golden ints, points equal to a reconstruction from them."""
+    from nvfpcc_tpu_torch import codec
+    from nvfpcc_tpu_torch.codec import weights as W
+    from nvfpcc_tpu_torch.config import ModelConfig
+
+    fix = os.path.join(ROOT, "tests", "fixtures", "packs")
+    pack = codec.load_pack(os.path.join(fix, "pack_v3.pk"))
+    golden = np.load(os.path.join(fix, "golden_v3.npz"))
+    spec = codec.model_spec(ModelConfig(ch=2, chanstr="4,8,4,4", entropy_mode="ctx"))
+    lat = codec.decode_latent_pack(spec, pack["latent_pack"])
+    points, info = codec.decode(pack, "cuda")
+    live = codec.reconstruct_points(
+        codec.decoder_from_tree(spec, W.unpack_weights(pack["net_weight_pack"]), "cuda"),
+        golden["latents"].astype(np.float32), golden["origins"], float(pack["codec"]["thh"]))
+    ok = np.array_equal(lat, golden["latents"]) and np.array_equal(points, live) and len(points) > 0
+    log(f"pack_v3 (JAX-made ctx): {info['n_blocks']} blocks -> {len(points)} pts, latents equal to the "
+        f"golden ints and points to the golden reconstruction: {ok}")
+    if not ok:
+        fail("pack_v3 decode differs from its golden arrays")
 
 
 def main() -> int:
@@ -414,7 +525,9 @@ def main() -> int:
     secs["train"] = time.time() - t
 
     # encode takes the checkpoint just trained
-    thh = pick_threshold(torch, w("ckpt"), len(pts))
+    from nvfpcc_tpu_torch.tools.ctx_recipe import threshold_keeping
+
+    thh = threshold_keeping(w("ckpt"), len(pts), "cuda")
     log(f"encode --thh {thh}: {TRAIN_EPOCHS} epochs do not reach the default threshold, so the "
         f"occupancy level that keeps about {len(pts)} voxels is used")
     t = time.time()
@@ -424,17 +537,7 @@ def main() -> int:
     secs["encode"] = time.time() - t
     log(f"encode: pack {os.path.getsize(w('pack.pk'))} bytes")
 
-    t = time.time()
-    dec = subprocess.run(
-        [sys.executable, "-m", "nvfpcc_tpu_torch.cli", "decode", w("pack.pk"),
-         "--recon", w("rc_dec.ply"), "--platform", "device"],
-        cwd=ROOT, capture_output=True, text=True, timeout=900,
-    )
-    secs["decode"] = time.time() - t
-    print(dec.stdout, end="")
-    if dec.returncode:
-        print(dec.stderr)
-        fail(f"decode process exited {dec.returncode}")
+    secs["decode"] = decode_in_second_process(w("pack.pk"), w("rc_dec.ply"))
     with open(w("rc_enc.ply"), "rb") as a, open(w("rc_dec.ply"), "rb") as b:
         enc_bytes, dec_bytes = a.read(), b.read()
     from nvfpcc_tpu_torch.cli import read_ply_points
@@ -471,6 +574,18 @@ def main() -> int:
     launches = K.LAUNCHES
     log("seconds per stage: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
     log("train: " + json.dumps(tstats))
+
+    # 5. the context-model path on the same grids; its own launch count
+    K.LAUNCHES = 0
+    t = time.time()
+    cstats = phase_ctx(torch, K, w, len(pts), len(origins))
+    ctx_launches = K.LAUNCHES
+    phase_ctx_fixture(torch)
+    log(f"ctx path: {time.time() - t:.2f} s, EDT launches {ctx_launches}")
+    log("ctx: " + json.dumps({k: ({kk: vv for kk, vv in v.items() if kk != "fit_log"} if isinstance(v, dict) else v)
+                              for k, v in cstats.items()}))
+    if ctx_launches < 1:
+        fail("the ctx path did not launch the EDT kernel")
     shutil.rmtree(args.workdir, ignore_errors=True)
 
     print(json.dumps({"kernels": [{
@@ -478,8 +593,8 @@ def main() -> int:
         "route": "cuda",
         "source": "nvfpcc_tpu_torch/csrc/edt.cu",
         "replaces": "nvfpcc_tpu/ops/pallas/edt_pallas.py:157",
-        "launches": launches,
-        "launches_by_stage": {"grids": grids_launches, "eval": eval_launches},
+        "launches": launches + ctx_launches,
+        "launches_by_stage": {"grids": grids_launches, "eval": eval_launches, "ctx_eval": ctx_launches},
         **kstats,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,9 @@ Flag-compatible with ``python -m nvfpcc_tpu.cli``:
 ``device`` run on the CUDA card (the EDT kernel included) and fail if there
 is none. Checkpoints and packs are the JAX package's formats, so a JAX
 checkpoint encodes here and packs decode in either package. ``train`` runs
-the ``channel`` entropy mode on one device; ``--mesh`` and the other modes
-exit with the ROADMAP item that ports them.
+the ``channel``, ``ctx`` and ``ctx_ar`` entropy modes on one device;
+``encode --ctx_post`` fits the context predictor post hoc. ``--mesh`` and
+the other modes exit with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -28,10 +29,12 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from nvfpcc_tpu_torch.config import CodecConfig, ModelConfig, TrainConfig
 from nvfpcc_tpu_torch.device import PLATFORMS, resolve_device
 from nvfpcc_tpu_torch.io.ply import read_ply_points, write_ply_points
+from nvfpcc_tpu_torch.models import decoder as M
 
 # The helpers from here to ``_DEFAULT_CHANSTR`` are copies of
 # ``nvfpcc_tpu/cli.py``'s (the artifact name, the model flags and the auto
@@ -168,6 +171,55 @@ _DEFAULT_CH = 3
 _DEFAULT_CHANSTR = "8,16,8,8"
 
 
+def _model_cfg(args) -> ModelConfig:
+    return ModelConfig(
+        ch=args.ch if args.ch is not None else _DEFAULT_CH,
+        chanstr=args.chanstr if args.chanstr is not None else _DEFAULT_CHANSTR,
+        entropy_mode=args.entropy_mode,
+        ctx_detach_pred=args.ctx_detach_pred,
+        ctx_hidden=args.ctx_hidden,
+        ctx_tail=args.ctx_tail or 0,
+        ctx_train_init=getattr(args, "ctx_train_init", "zero"),
+    )
+
+
+def resolve_encode_flags(args, meta: dict, n_blocks: int) -> str:
+    """Fill the encode's entropy flags from the checkpoint and ``auto``, the
+    way ``nvfpcc_tpu/cli.py`` does, so one command line makes the same pack
+    in both packages; returns the line to print. An unset ``--ctx_tail``
+    takes the checkpoint's trained split. ``auto`` takes the checkpoint's
+    mode and, where the break-even model predicts a saving, upgrades a ctx
+    checkpoint to ctx_ar + ctx_post at the model's best (hidden, tail). An
+    explicit ``--ctx_post`` with ``auto`` keeps the tail it had (the
+    checkpoint's or the flag's), as the JAX package does."""
+    if args.ctx_tail is None:
+        # a co-trained tail split is part of the trained predictor; ctx_post
+        # refits from scratch, so the auto economics may still replace it
+        args.ctx_tail = int(meta.get("ctx_tail", 0))
+    if args.entropy_mode != "auto":
+        return ""
+    trained = str(meta.get("entropy_mode", "channel"))
+    n_symbols = n_blocks * int(args.ch) * 8  # the latent symbols this pack codes
+    mode, hidden, tail, post = resolve_auto_encode(
+        trained, int(meta.get("ctx_hidden", args.ctx_hidden)), n_symbols
+    )
+    args.entropy_mode, args.ctx_hidden = mode, hidden
+    if post:
+        gain = ctx_post_break_even(n_symbols)[0]
+        if not args.ctx_post:
+            args.ctx_post, args.ctx_tail = True, tail
+            why = "pass an explicit --entropy_mode to opt out"
+        else:
+            why = f"the explicit --ctx_post keeps tail {args.ctx_tail}"
+        return (f"[encode] entropy_mode auto -> ctx_ar + ctx_post (hidden {hidden} tail "
+                f"{args.ctx_tail}): predicted net stream saving {gain:.0f} bits at {n_symbols} "
+                f"symbols (measured break-even model); {why}")
+    if trained in ("ctx", "ctx_ar"):
+        return (f"[encode] entropy_mode auto -> {mode} (from checkpoint; ctx_post break-even "
+                f"not met at {n_symbols} symbols)")
+    return f"[encode] entropy_mode auto -> {mode} (from checkpoint)"
+
+
 def load_or_build_artifacts(cloud: str, depth: int, level: int, device, log=print) -> dict:
     """origins/gt/dist for a cloud, cached as one npz beside it (the same
     file name and layout as the JAX CLI's)."""
@@ -214,20 +266,21 @@ def cmd_train(args) -> int:
 
     if args.mesh:
         raise SystemExit("train --mesh (block-DP) is not ported to nvfpcc_tpu_torch yet (ROADMAP A16)")
+    if args.entropy_mode in M.NOT_PORTED_MODES:
+        raise SystemExit(
+            f"train --entropy_mode {args.entropy_mode} is not ported to nvfpcc_tpu_torch yet "
+            f"(ROADMAP {M.NOT_PORTED_MODES[args.entropy_mode]})"
+        )
     device = resolve_device(args.platform)
     art = load_or_build_artifacts(args.cloud, args.depth, args.level, device)
     ch = args.ch if args.ch is not None else _DEFAULT_CH
     if args.entropy_mode == "auto":
         args.entropy_mode = resolve_auto_train(args.level, len(art["origins"]) * ch * 8)
-        print(f"[train] entropy_mode auto -> {args.entropy_mode}")
-    if args.entropy_mode in ("ctx", "ctx_ar"):
-        raise SystemExit(
-            f"train --entropy_mode {args.entropy_mode} is not ported to nvfpcc_tpu_torch yet (ROADMAP A13)"
+        print(
+            f"[train] entropy_mode auto -> {args.entropy_mode} (channel unless the level is >= 6 "
+            "and the ctx_post upgrade pays at this symbol count)"
         )
-    mcfg = ModelConfig(
-        ch=ch, chanstr=args.chanstr if args.chanstr is not None else _DEFAULT_CHANSTR,
-        entropy_mode=args.entropy_mode,
-    )
+    mcfg = _model_cfg(args)
     cfg = TrainConfig(
         lmbda=args.lmbda, w1=args.w1, w2=args.w2, wemb=args.wemb, lr=args.lr,
         batch_size=args.batchsize, epochs=args.epochs, phase_change=args.phase_change,
@@ -280,24 +333,28 @@ def cmd_encode(args) -> int:
                 f"--{flag} {given_v} contradicts the checkpoint (trained with "
                 f"--{flag} {trained_v}); drop the flag to use the trained value"
             )
-    if args.entropy_mode == "auto":
-        trained = str(meta.get("entropy_mode", "channel"))
-        n_symbols = n_blocks * int(args.ch) * 8
-        mode, _, _, post = resolve_auto_encode(
-            trained, int(meta.get("ctx_hidden", args.ctx_hidden)), n_symbols
-        )
-        args.entropy_mode = mode
-        args.ctx_post = args.ctx_post or post
-        if post:
-            print(
-                f"[encode] entropy_mode auto -> ctx_ar + ctx_post: predicted net "
-                f"stream saving {ctx_post_break_even(n_symbols)[0]:.0f} bits"
-            )
-        else:
-            print(f"[encode] entropy_mode auto -> {mode} (from checkpoint)")
+    line = resolve_encode_flags(args, meta, n_blocks)
+    if line:
+        print(line)
+    args.ch, args.chanstr = int(args.ch), str(args.chanstr)
+    mcfg = _model_cfg(args)
     if args.ctx_post:
-        raise SystemExit("encode --ctx_post is not ported to nvfpcc_tpu_torch yet (ROADMAP A13)")
-    mcfg = ModelConfig(ch=int(args.ch), chanstr=str(args.chanstr), entropy_mode=args.entropy_mode)
+        # post-hoc predictor fit: entropy-upgrade the checkpoint to a ctx /
+        # ctx_ar pack without touching its latents (same reconstruction)
+        from nvfpcc_tpu_torch.train.ctx_fit import upgrade_params_to_ctx
+
+        if mcfg.entropy_mode not in ("ctx", "ctx_ar"):
+            raise SystemExit(
+                "--ctx_post needs --entropy_mode ctx or ctx_ar (it fits the masked-conv "
+                "predictor the pack will carry)"
+            )
+        fit_device = torch.device("cpu") if args.ctx_fit_backend == "cpu" else device
+        t0 = time.time()
+        params = upgrade_params_to_ctx(
+            codec.model_spec(mcfg), params, np.asarray(emb), fit_device, steps=args.ctx_fit_steps,
+            lr=args.ctx_fit_lr, early_stop=args.ctx_fit_early_stop,
+        )
+        print(f"[encode] ctx_post fit on {fit_device} in {time.time() - t0:.1f}s")
     ccfg = CodecConfig(
         thh_encode=args.thh, thh_decode=args.thh, qp=args.qp,
         depth=args.depth, level=args.level, recon_dtype=args.recon_dtype,
@@ -310,6 +367,7 @@ def cmd_encode(args) -> int:
         f"{size} B pack | bpp {s['bpp']:.4f} "
         f"(latent {s['b_latent']:.4f} net {s['b_net']:.4f} origins {s['b_origins']:.4f}) "
         f"| recon {s['n_points_rec']} pts"
+        + (f" | ctx payload {s['ctx_payload_bits']} bits" if "ctx_payload_bits" in s else "")
     )
     if args.recon:
         write_ply_points(args.recon, result.points, ascii=False)
@@ -360,12 +418,7 @@ def cmd_weights(args) -> int:
     from nvfpcc_tpu_torch.utils import checkpoint as C
     from nvfpcc_tpu_torch.utils.params import flatten_tree
 
-    params, emb, meta = C.load_checkpoint_meta(args.ckpt)
-    mode = str((meta or {}).get("entropy_mode", "channel"))
-    if mode in ("ctx", "ctx_ar"):
-        raise SystemExit(
-            f"weights on a {mode} checkpoint is not ported to nvfpcc_tpu_torch yet (ROADMAP A13)"
-        )
+    params, emb = C.load_checkpoint(args.ckpt)
     qparams = W.quantize_residuals(params, args.qp)
     pack = W.pack_weights(qparams, args.qp)
     coded, as_is = W.weight_pack_bits(pack)
@@ -427,7 +480,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     t.add_argument(
         "--ctx_train_init", choices=("zero", "feature"), default="zero",
-        help="ctx modes: predictor init for co-training (ctx modes are not ported yet)",
+        help="ctx modes: predictor init for co-training. zero = reference "
+        "behavior, the measured RD default; feature = working-predictor "
+        "init, measured worse for co-training, kept selectable",
     )
     t.add_argument(
         "--compute_dtype", choices=("f32", "bf16"), default="bf16",
@@ -454,7 +509,23 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--qp", type=int, default=16)
     e.add_argument("--recon_dtype", choices=("f32", "bf16"), default="f32",
                    help="reconstruction dtype (bf16 is not ported yet)")
-    e.add_argument("--ctx_post", action="store_true", help="not ported yet")
+    e.add_argument(
+        "--ctx_post", action="store_true",
+        help="fit the ctx/ctx_ar predictor post hoc on the checkpoint's frozen "
+        "latents before packing (same reconstruction and D1, smaller latent stream)",
+    )
+    e.add_argument("--ctx_fit_steps", type=int, default=3000)
+    e.add_argument("--ctx_fit_lr", type=float, default=3e-2)
+    e.add_argument(
+        "--ctx_fit_early_stop", type=float, default=2e-3,
+        help="end a ctx_post fit phase when a 250-step chunk improves the "
+        "stream-bit estimate by less than this fraction (0 disables)",
+    )
+    e.add_argument(
+        "--ctx_fit_backend", choices=("", "cpu"), default="",
+        help="device of the ctx_post fit: empty = the device the encode runs on "
+        "(the card unless --platform cpu), cpu = the host; any result is a valid pack",
+    )
     e.set_defaults(fn=cmd_encode)
 
     d = sub.add_parser("decode", help="pack.pk -> reconstructed cloud")

@@ -5,12 +5,14 @@ from nvfpcc_tpu_torch.codec.codec import (  # noqa: F401
     PACK_FORMAT_VERSION,
     EncodeResult,
     decode,
+    decode_latent_pack,
     decode_origins,
     decoder_from_tree,
     encode,
     encode_origins,
     extract_points,
     load_pack,
+    model_spec,
     reconstruct_all,
     reconstruct_points,
     save_pack,

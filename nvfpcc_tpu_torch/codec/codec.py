@@ -1,10 +1,14 @@
-"""Encode/decode orchestration + the ``pack.pk`` container, channel mode
-(port of ``nvfpcc_tpu/codec/codec.py``).
+"""Encode/decode orchestration + the ``pack.pk`` container (port of
+``nvfpcc_tpu/codec/codec.py``; channel and ctx-family latent packs).
 
 A pack is a pickled dict of three payloads — entropy-packed decoder
 weights, octree-coded block origins, range-coded latents — plus the model
 metadata that rebuilds the seeded decoder. Packs are byte-compatible with
-the JAX package's in both directions.
+the JAX package's in both directions. In ctx modes (format v3 latent packs)
+the latent pack also carries the ctx payload (the masked predictor's
+kernel residual ints and biases), and the symbols are coded under tables
+that the host's integer-exact predictor (``coder/ctx_coder.py``) derives
+from the already-coded prefix, the same on both ends.
 
 Fidelity gate: the encoder reconstructs from its OWN unpacked weight pack
 and the exact integer latents it coded, through the same decoder program
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from nvfpcc_tpu_torch.codec import weights as W
+from nvfpcc_tpu_torch.coder import ctx_coder as CTX
 from nvfpcc_tpu_torch.coder import range_coder as RC
 from nvfpcc_tpu_torch.config import CodecConfig, ModelConfig
 from nvfpcc_tpu_torch.device import set_numerics
@@ -63,7 +68,8 @@ class EncodeResult:
 
 def model_spec(model_cfg: ModelConfig) -> M.ModelSpec:
     return M.build_model_spec(
-        model_cfg.ch, model_cfg.channels, model_cfg.seed_tag, model_cfg.entropy_mode
+        model_cfg.ch, model_cfg.channels, model_cfg.seed_tag, model_cfg.entropy_mode,
+        ctx_hidden=model_cfg.ctx_hidden, ctx_tail=model_cfg.ctx_tail,
     )
 
 
@@ -158,17 +164,39 @@ def encode(
         code = M.get_latent_code(net, torch.as_tensor(np.asarray(emb, np.float32), device=device))
     lat = code["quantized_latent"].cpu().numpy()
     lat_int = np.rint(lat.astype(np.float64)).astype(np.int64)
-    # clamp to the codable alphabet; both sides reconstruct from the clamped
-    # ints, so parity is unaffected — but warn, because training drifted
-    lo, hi = -RC.OFFSET, RC.N_SYM - RC.OFFSET - 1
-    n_out = int(((lat_int < lo) | (lat_int > hi)).sum())
-    if n_out:
-        warnings.warn(f"{n_out} latent(s) outside the codable range [{lo}, {hi}] were clamped")
-        lat_int = np.clip(lat_int, lo, hi)
-    latent_pack = RC.encode_latents(
-        lat_int, code["sigma"].detach().cpu().numpy(), code["mu"].detach().cpu().numpy()
-    )
-    latent_extra_bits = 2 * latent_pack["sigma"].size * 32
+    if spec.entropy_mode in M.CTX_MODES:
+        # context-model path (format v3): per-symbol tables come from the
+        # decoded prefix through the integer-exact host predictor, built from
+        # the payload exactly as the decoder rebuilds it; a residual clamped
+        # to the alphabet is clamped in encoder/decoder lockstep
+        ctx_payload = CTX.build_ctx_payload(spec, qparams["entropy"], codec_cfg.qp)
+        ctx_ints = CTX.ctx_ints_from_payload(spec, ctx_payload)
+        channel_ar = spec.entropy_mode == "ctx_ar"
+        enc = CTX.encode_latents_ctx(lat_int, ctx_ints, channel_ar)
+        if enc["n_clamped"]:
+            warnings.warn(f"{enc['n_clamped']} ctx latent residual(s) clamped to the alphabet")
+        rt = CTX.decode_latents_ctx(enc["stream"], enc["shape"], ctx_ints, channel_ar)
+        if not np.array_equal(rt, enc["coded"]):
+            raise RuntimeError("ctx range coder round-trip failed")
+        lat_int = enc["coded"]
+        latent_pack = {
+            "mode": spec.entropy_mode, "stream": enc["stream"], "shape": enc["shape"],
+            "ctx": ctx_payload,
+        }
+        latent_extra_bits = CTX.ctx_payload_bits(ctx_payload)
+    else:
+        # clamp to the codable alphabet; both sides reconstruct from the
+        # clamped ints, so parity is unaffected — but warn, because training
+        # drifted
+        lo, hi = -RC.OFFSET, RC.N_SYM - RC.OFFSET - 1
+        n_out = int(((lat_int < lo) | (lat_int > hi)).sum())
+        if n_out:
+            warnings.warn(f"{n_out} latent(s) outside the codable range [{lo}, {hi}] were clamped")
+            lat_int = np.clip(lat_int, lo, hi)
+        latent_pack = RC.encode_latents(
+            lat_int, code["sigma"].detach().cpu().numpy(), code["mu"].detach().cpu().numpy()
+        )
+        latent_extra_bits = 2 * latent_pack["sigma"].size * 32
 
     # [ORIGINS] trimmed octree occupancy bits
     origins_payload = encode_origins(origins, codec_cfg.depth, codec_cfg.level)
@@ -180,6 +208,11 @@ def encode(
             "chanstr": model_cfg.chanstr,
             "seed_tag": model_cfg.seed_tag,
             "entropy_mode": model_cfg.entropy_mode,
+            # the decoder rebuilds the same predictor width (absent = 8) and
+            # tail split (absent = 0, so packs predating ctx_tail decode)
+            **({"ctx_hidden": int(spec.ctx_hidden)} if spec.entropy_mode in M.CTX_MODES else {}),
+            **({"ctx_tail": int(spec.ctx_tail)}
+               if spec.entropy_mode in M.CTX_MODES and spec.ctx_tail else {}),
         },
         "codec": {
             # the decode threshold; the encoder reconstructs at the same value
@@ -200,8 +233,13 @@ def encode(
     points = reconstruct_points(decoder, lat_int.astype(np.float32), origins, codec_cfg.thh_encode)
 
     coded_w, as_is_w = W.weight_pack_bits(net_weight_pack)
-    net_bits_total = coded_w + as_is_w
-    latent_bits = 8 * len(latent_pack["stream"]) + latent_extra_bits
+    if spec.entropy_mode in M.CTX_MODES:
+        # the ctx side-information is network weight, as training counts it
+        net_bits_total = coded_w + as_is_w + latent_extra_bits
+        latent_bits = 8 * len(latent_pack["stream"])
+    else:
+        net_bits_total = coded_w + as_is_w
+        latent_bits = 8 * len(latent_pack["stream"]) + latent_extra_bits
     origin_bits = origins_payload["n_bits"]
     total_bits = net_bits_total + latent_bits + origin_bits
     stats = {
@@ -215,6 +253,8 @@ def encode(
         "latent_stream_bytes": len(latent_pack["stream"]),
         "weight_stream_bytes": len(net_weight_pack["bit_stream"]),
     }
+    if spec.entropy_mode in M.CTX_MODES:
+        stats["ctx_payload_bits"] = int(latent_extra_bits)
     return EncodeResult(pack=pack, points=points, stats=stats)
 
 
@@ -227,11 +267,12 @@ def decode(pack: dict, device) -> Tuple[np.ndarray, dict]:
     spec = model_spec(ModelConfig(
         ch=int(mc["ch"]), chanstr=mc["chanstr"], seed_tag=mc["seed_tag"],
         entropy_mode=mc.get("entropy_mode", "channel"),
+        ctx_hidden=int(mc.get("ctx_hidden", M.CTX_HIDDEN)), ctx_tail=int(mc.get("ctx_tail", 0)),
     ))
     recon_dtype = str(pack["codec"].get("recon_dtype", "f32"))
     _check_recon_dtype(recon_dtype)
     decoder = decoder_from_tree(spec, W.unpack_weights(pack["net_weight_pack"]), device)
-    latents = RC.decode_latents(pack["latent_pack"])
+    latents = decode_latent_pack(spec, pack["latent_pack"])
     origins = decode_origins(
         pack["origins"], int(pack["codec"]["depth"]), int(pack["codec"]["level"])
     )
@@ -244,6 +285,17 @@ def decode(pack: dict, device) -> Tuple[np.ndarray, dict]:
         "recon_dtype": recon_dtype,
     }
     return points, info
+
+
+def decode_latent_pack(spec: M.ModelSpec, latent_pack: dict) -> np.ndarray:
+    """The coded integer latents (N, 2, 2, 2, ch) as float32."""
+    if latent_pack.get("mode") in M.CTX_MODES:
+        ctx_ints = CTX.ctx_ints_from_payload(spec, latent_pack["ctx"])
+        return CTX.decode_latents_ctx(
+            latent_pack["stream"], tuple(latent_pack["shape"]), ctx_ints,
+            channel_ar=latent_pack["mode"] == "ctx_ar",
+        ).astype(np.float32)
+    return RC.decode_latents(latent_pack)
 
 
 def save_pack(path: str, pack: dict) -> int:

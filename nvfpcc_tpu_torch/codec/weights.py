@@ -18,22 +18,28 @@ import numpy as np
 
 from nvfpcc_tpu_torch.coder import huffman
 from nvfpcc_tpu_torch.coder import range_coder as RC
-from nvfpcc_tpu_torch.models.decoder import TRANSMITTED_KERNELS
+from nvfpcc_tpu_torch.models.decoder import CTX_KERNELS, TRANSMITTED_KERNELS
 
 # as-is (fp32, uncoded) leaves of the decode tree: path -> copied verbatim
 _AS_IS_KEYS = tuple(f"{n}/b" for n in TRANSMITTED_KERNELS) + ("igdn/beta", "igdn/gamma")
 
 
+def _round_kernel(layer: dict, qp: int) -> dict:
+    k = np.asarray(layer["kernel"], np.float64)
+    return {**layer, "kernel": (np.rint(k * qp) / qp).astype(np.float32)}
+
+
 def quantize_residuals(params: dict, qp: int = 16) -> dict:
-    """``params`` with the 7 transmitted kernel residuals rounded to the 1/qp
-    grid (float64 round -> float32 values, as the JAX package does)."""
-    dp = dict(params["decoder"])
-    for name in TRANSMITTED_KERNELS:
-        layer = dict(dp[name])
-        k = np.asarray(layer["kernel"], np.float64)
-        layer["kernel"] = (np.rint(k * qp) / qp).astype(np.float32)
-        dp[name] = layer
-    return {**params, "decoder": dp}
+    """``params`` with every transmitted kernel residual rounded to the 1/qp
+    grid (float64 round -> float32 values, as the JAX package does): the 7
+    decoder kernels, plus the 2 ctx-model masked kernels when present."""
+    out = {**params, "decoder": {
+        **params["decoder"], **{n: _round_kernel(params["decoder"][n], qp) for n in TRANSMITTED_KERNELS}
+    }}
+    ep = params.get("entropy", {})
+    if all(n in ep for n in CTX_KERNELS):
+        out["entropy"] = {**ep, **{n: _round_kernel(ep[n], qp) for n in CTX_KERNELS}}
+    return out
 
 
 def _kernel_ints(dp: dict, qp: int):
@@ -129,6 +135,11 @@ def unpack_int_stream(pack: dict, n: int) -> np.ndarray:
     cum = RC.build_cum_from_counts(pack["counts"])
     flat = RC.decode(pack["bit_stream"], np.zeros(n, np.int32), cum).astype(np.int64)
     return flat + int(pack["min_sym"])
+
+
+def int_stream_bits(pack: dict) -> int:
+    """Stream + histogram-table bits of a :func:`pack_int_stream` payload."""
+    return 8 * len(pack["bit_stream"]) + 16 + len(np.asarray(pack["counts"])) * 24
 
 
 def pack_int_stream_layered(tensors) -> dict:

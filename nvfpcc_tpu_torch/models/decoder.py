@@ -1,7 +1,8 @@
-"""The NVF codec model, channel entropy mode (port of
-``nvfpcc_tpu/models/decoder.py``): latent generator + per-channel Gaussian
-bottleneck + CompDecoder, as ``nn.Module``s whose parameter names are the
-JAX params tree's paths (``decoder.up0.kernel`` <-> ``decoder/up0/kernel``).
+"""The NVF codec model (port of ``nvfpcc_tpu/models/decoder.py``): latent
+generator + entropy bottleneck (per-channel Gaussian, or the masked-conv
+context predictor of the ctx family) + CompDecoder, as ``nn.Module``s whose
+parameter names are the JAX params tree's paths (``decoder.up0.kernel`` <->
+``decoder/up0/kernel``, ``entropy.ctx1.kernel`` <-> ``entropy/ctx1/kernel``).
 
 Decoder shape chain on a 2^3 latent: ``up0`` (deconv k5 s2 p2 op1) 2->4 +
 IGDN, ``conv0`` (deconv k5 s2 p2 op1) 4->8 + ReLU [aux head conv0_cls],
@@ -10,10 +11,18 @@ IGDN, ``conv0`` (deconv k5 s2 p2 op1) 4->8 + ReLU [aux head conv0_cls],
 valid) 35->32 + ReLU, ``conv2_cls`` (k3 p1) + sigmoid -> occupancy.
 
 Seven kernels are transmitted (quantized residuals): up0, conv0, up1, conv1,
-up2, conv2, conv2_cls. The aux heads and the latent generator are
-training-only. Noise for the q=1 phase and for the train-mode bottleneck is
-an argument; nothing here draws random numbers. :func:`net_apply` is the
-training forward.
+up2, conv2, conv2_cls; in ctx modes the two masked predictor kernels
+(ctx1, ctx2) are transmitted too. The aux heads and the latent generator
+are training-only. Noise for the q=1 phase and for the train-mode
+bottleneck is an argument; nothing here draws random numbers.
+:func:`net_apply` is the training forward.
+
+Entropy modes: ``channel`` and the ctx family. ``ctx`` predicts each latent
+position's (mu, sigma) from the causally earlier positions of its block
+with two masked 3^3 convs; ``ctx_ar`` also lets channel c see the same
+position's channels < c, and may split off ``ctx_tail`` payload-cheap tail
+units that ctx2 reads only through the gated center tap. The predictor is
+coding-path numerics and stays f32 whatever the compute dtype.
 """
 
 from __future__ import annotations
@@ -28,13 +37,15 @@ from torch import nn
 from nvfpcc_tpu_torch.utils import seeds
 from nvfpcc_tpu_torch.ops import rate
 from nvfpcc_tpu_torch.ops.conv import (
-    IConv3d, QConv3d, QConvTranspose3d, as_compute_dtype, make_qspec,
+    IConv3d, QConv3d, QConvTranspose3d, as_compute_dtype, channel_ar_mask, make_masked_qspec,
+    make_qspec,
 )
 from nvfpcc_tpu_torch.ops.gdn import GDN
 from nvfpcc_tpu_torch.ops.ste import bypass_round, bypass_round16
 
 # stable per-layer seed indices (decoder-regenerable; order is part of the
-# format — the same table as the JAX package's, channel-mode layers only)
+# format — the same table as the JAX package's; ctx1/ctx2 were appended, so
+# every older layer's seed stream is unchanged)
 _LAYER_SEED_IDX = {
     "latent_gen": 0,
     "up0": 1,
@@ -46,15 +57,25 @@ _LAYER_SEED_IDX = {
     "conv2_cls": 7,
     "conv1_cls": 8,
     "conv0_cls": 9,
+    "ctx1": 10,
+    "ctx2": 11,
 }
 
 TRANSMITTED_KERNELS = ("up0", "conv0", "up1", "conv1", "up2", "conv2", "conv2_cls")
 
+# the context model's (masked) kernels, whose residuals are transmitted too
+CTX_KERNELS = ("ctx1", "ctx2")
+CTX_MODES = ("ctx", "ctx_ar")  # spatial-only / + channel-autoregressive
+CTX_HIDDEN = 8  # default predictor hidden width (the reference PredNet's)
+CTX_SIGMA_FLOOR = 1e-6
+# leaky-relu slope between the two masked convs: 1/16, so the host's
+# integer-exact predictor (coder/ctx_coder.py) computes the same function
+# in fixed point (floor division by 16)
+CTX_LRELU_SLOPE = 1.0 / 16.0
+
 # entropy modes of the JAX package that this port does not run yet, and the
 # ROADMAP item that ports each
-_NOT_PORTED_MODES = {
-    "spatio": "A12", "gmm": "A12", "factorized": "A12", "ctx": "A13", "ctx_ar": "A13",
-}
+NOT_PORTED_MODES = {"spatio": "A12", "gmm": "A12", "factorized": "A12"}
 
 
 @dataclass(frozen=True)
@@ -66,6 +87,15 @@ class ModelSpec:
     specs: dict  # name -> QSpec
     seed_tag: str
     entropy_mode: str = "channel"
+    ctx_hidden: int = CTX_HIDDEN  # masked-conv predictor hidden width
+    ctx_tail: int = 0
+    """ctx_ar only: the last ``ctx_tail`` of the ``ctx_hidden`` units are
+    tail units, with full causal ctx1 taps but read by ctx2 only through the
+    channel-gated center tap. Format-visible (the masks decide what is
+    transmitted): pack ``model.ctx_tail``, checkpoint metadata, CLI."""
+    ctx_detach_pred: bool = False
+    """Training only: stop the rate gradient at the predictor's input, so
+    the latents are shaped by distortion and their own rate only."""
 
     @property
     def latent_shape(self) -> Tuple[int, int, int, int]:
@@ -77,15 +107,26 @@ def build_model_spec(
     channels: Tuple[int, int, int, int] = (8, 16, 8, 8),
     seed_tag: str = seeds.DEFAULT_TAG,
     entropy_mode: str = "channel",
+    ctx_detach_pred: bool = False,
+    ctx_hidden: int = CTX_HIDDEN,
+    ctx_tail: int = 0,
 ) -> ModelSpec:
-    """Layer specs of the reference architecture (channel mode only)."""
-    if entropy_mode in _NOT_PORTED_MODES:
+    """Layer specs of the reference architecture, plus the masked predictor
+    (ctx1, ctx2) in ctx modes."""
+    if entropy_mode in NOT_PORTED_MODES:
         raise NotImplementedError(
             f"entropy_mode {entropy_mode!r} is not ported to nvfpcc_tpu_torch yet "
-            f"(ROADMAP {_NOT_PORTED_MODES[entropy_mode]}); only 'channel' runs here"
+            f"(ROADMAP {NOT_PORTED_MODES[entropy_mode]}); 'channel', 'ctx' and 'ctx_ar' run here"
         )
-    if entropy_mode != "channel":
+    if entropy_mode not in ("channel",) + CTX_MODES:
         raise ValueError(f"unknown entropy_mode: {entropy_mode}")
+    if ctx_tail and entropy_mode != "ctx_ar":
+        raise ValueError(
+            "ctx_tail needs entropy_mode=ctx_ar (plain ctx keeps the strict masks, "
+            "whose ctx2 has no center tap — a center-only tail unit would be unreadable)"
+        )
+    if not 0 <= ctx_tail < max(ctx_hidden, 1):
+        raise ValueError(f"ctx_tail must be in [0, ctx_hidden), got {ctx_tail}")
     key = seeds.base_key(seed_tag)
     c0, c1, c2, c3 = channels
 
@@ -104,7 +145,70 @@ def build_model_spec(
         "conv1_cls": make_qspec(k("conv1_cls"), "conv", c2, 1, 3, 1, 1),
         "conv0_cls": make_qspec(k("conv0_cls"), "conv", c1, 1, 3, 1, 1),
     }
-    return ModelSpec(ch=ch, channels=tuple(channels), specs=specs, seed_tag=seed_tag)
+    if entropy_mode == "ctx":
+        # two strictly causal masked convs over the 2^3 latent
+        specs["ctx1"] = make_masked_qspec(k("ctx1"), ch, ctx_hidden, 3)
+        specs["ctx2"] = make_masked_qspec(k("ctx2"), ctx_hidden, 2 * ch, 3)
+    elif entropy_mode == "ctx_ar":
+        # + channel autoregression: (mu_c, sigma_c) also see the same
+        # position's channels < c; hidden unit i belongs to group i % ch
+        m1 = channel_ar_mask(3, ch, ctx_hidden, in_group=lambda i: i,
+                             out_group=lambda g: g % ch, center_strict=True)
+        m2 = channel_ar_mask(3, ctx_hidden, 2 * ch, in_group=lambda g: g % ch,
+                             out_group=lambda o: o % ch, center_strict=False)
+        if ctx_tail:
+            # tail units: only the (channel-gated) center ctx2 tap stays
+            center = m2[1, 1, 1, ctx_hidden - ctx_tail:, :].copy()
+            m2[:, :, :, ctx_hidden - ctx_tail:, :] = 0.0
+            m2[1, 1, 1, ctx_hidden - ctx_tail:, :] = center
+        specs["ctx1"] = make_masked_qspec(k("ctx1"), ch, ctx_hidden, 3, mask=m1)
+        specs["ctx2"] = make_masked_qspec(k("ctx2"), ctx_hidden, 2 * ch, 3, mask=m2)
+    return ModelSpec(
+        ch=ch, channels=tuple(channels), specs=specs, seed_tag=seed_tag, entropy_mode=entropy_mode,
+        ctx_hidden=ctx_hidden, ctx_tail=ctx_tail, ctx_detach_pred=ctx_detach_pred,
+    )
+
+
+def ctx_feature_init(spec: ModelSpec) -> dict:
+    """The structured predictor init (numpy entropy subtree, JAX layout):
+    layer 1 carries +-pass-through unit pairs of the axis-neighbour values
+    x[p+d, c] (and, in ctx_ar, of the same position's earlier channels
+    through the gated center), placed in hidden groups the layer-2 center
+    gate can read; layer 2 starts at zero. Both layers' seeded inits are
+    cancelled so the features are exact. From zero residuals the two masked
+    layers' gradients are proportional to each other's weights and the fit
+    stalls near the marginal rate; this init starts it from a quasi-linear
+    predictor. The post-hoc fit's start, and training's with
+    ``ctx_train_init=feature``."""
+    ch = spec.ch
+    s1, s2 = spec.specs["ctx1"], spec.specs["ctx2"]
+    hidden = s1.out_ch
+    k1 = -np.asarray(s1.kernel_init, np.float64).copy()
+    mask1 = np.broadcast_to(np.asarray(s1.mask), s1.kernel_shape)
+    groups = {g: [i for i in range(hidden) if i % ch == g] for g in range(ch)}
+    spatial = [
+        (dz, dy, dx, c) for (dz, dy, dx) in ((0, 0, -1), (0, -1, 0), (-1, 0, 0)) for c in range(ch)
+    ]
+    g0 = groups[0]
+    pairs = [(g0[2 * j], g0[2 * j + 1]) for j in range(len(g0) // 2)]
+    for (dz, dy, dx, c), (up, um) in zip(spatial, pairs):
+        k1[dz + 1, dy + 1, dx + 1, c, up] += 1.0
+        k1[dz + 1, dy + 1, dx + 1, c, um] -= 1.0
+    if spec.entropy_mode == "ctx_ar":
+        used: set = set()
+        for cp in range(ch - 1):
+            cands = [i for g in range(cp + 1, ch) for i in groups[g] if i not in used]
+            if len(cands) >= 2:
+                up, um = cands[0], cands[1]
+                used.update((up, um))
+                k1[1, 1, 1, cp, up] += 1.0
+                k1[1, 1, 1, cp, um] -= 1.0
+    k1 *= mask1  # no energy on masked taps (they are never coded)
+    k2 = -np.asarray(s2.kernel_init, np.float64) * np.broadcast_to(np.asarray(s2.mask), s2.kernel_shape)
+    return {
+        "ctx1": {"kernel": k1.astype(np.float32), "b": np.zeros((s1.out_ch,), np.float32)},
+        "ctx2": {"kernel": k2.astype(np.float32), "b": np.zeros((s2.out_ch,), np.float32)},
+    }
 
 
 class GaussianParams(nn.Module):
@@ -192,6 +296,32 @@ class CompDecoder(nn.Module):
         return out, [cls0, cls1, out], net_bits
 
 
+class CtxPredictor(nn.Module):
+    """The context model's entropy subtree: two quantized masked convs with
+    a leaky ReLU (slope 1/16) between them (reference ``PredNet``)."""
+
+    def __init__(self, spec: ModelSpec):
+        super().__init__()
+        self.ch = spec.ch
+        self.ctx1 = QConv3d(spec.specs["ctx1"])
+        self.ctx2 = QConv3d(spec.specs["ctx2"])
+
+    def forward(self, x_rounded: torch.Tensor, q: int = 2,
+                noise: Optional[Dict[str, torch.Tensor]] = None):
+        """Per-position ``(mu, sigma)`` of the latent ``x_rounded``
+        (N, 2, 2, 2, ch), each position seeing only causally earlier ones.
+        ``noise`` holds the q=1 kernel draws under ``"ctx1"``/``"ctx2"``.
+        The input is always the rounded latent (teacher forcing); the host
+        coder evaluates the same function incrementally."""
+        nz = noise or {}
+        h = self.ctx1(x_rounded, q, nz.get("ctx1"))
+        # jax.nn.leaky_relu's form: its gradient at exactly 0 is 1 (that of
+        # F.leaky_relu is the slope)
+        h = torch.where(h >= 0, h, h * CTX_LRELU_SLOPE)
+        out = self.ctx2(h, q, nz.get("ctx2"))
+        return out[..., : self.ch], torch.abs(out[..., self.ch:]) + CTX_SIGMA_FLOOR
+
+
 class Net(nn.Module):
     """Latent generator + entropy bottleneck + decoder: the whole params tree."""
 
@@ -199,12 +329,13 @@ class Net(nn.Module):
         super().__init__()
         self.spec = spec
         self.latent_gen = LatentGen(spec)
-        self.entropy = GaussianParams(spec.ch)
+        self.entropy = CtxPredictor(spec) if spec.entropy_mode in CTX_MODES else GaussianParams(spec.ch)
         self.decoder = CompDecoder(spec)
 
 
 def init_params(spec: ModelSpec, device=None) -> Net:
-    """Zero residuals, entropy sigma 1 / mu 0, seeded inits as buffers."""
+    """Zero residuals (the ctx predictor's too, as the reference), entropy
+    sigma 1 / mu 0 in channel mode, seeded inits as buffers."""
     return Net(spec).to(device)
 
 
@@ -213,11 +344,29 @@ def init_embeddings(n_blocks: int, ch: int, device=None) -> torch.Tensor:
     return torch.ones((n_blocks, 2, 2, 2, ch), dtype=torch.float32, device=device)
 
 
-def entropy_apply(net: Net, x: torch.Tensor, mode: str, noise: Optional[torch.Tensor] = None):
-    """Latent bottleneck: STE round + Gaussian rate. ``mode="train"`` forms
-    the rate on ``x + noise`` (``noise`` ~ U(-0.5, 0.5), passed in).
-    Returns ``(x_rounded, bits)`` with ``bits`` shaped like ``x``."""
+def entropy_apply(
+    net: Net, x: torch.Tensor, mode: str, noise: Optional[torch.Tensor] = None, q: int = 2,
+    pred_noise: Optional[Dict[str, torch.Tensor]] = None,
+):
+    """Latent bottleneck: STE round + Gaussian rate. Returns ``(x_rounded,
+    bits)`` with ``bits`` shaped like ``x``.
+
+    Channel mode: ``mode="train"`` forms the rate on ``x + noise`` (``noise``
+    ~ U(-0.5, 0.5), passed in) at either q. ctx modes follow the kernel
+    phase: at train q=1 the rate is formed on ``x + noise`` and the
+    predictor's kernels take their q=1 noise (``pred_noise``); otherwise
+    (q=2, or eval) it is formed on ``x_rounded`` and no noise is used."""
     x_rounded = bypass_round(x)
+    if net.spec.entropy_mode in CTX_MODES:
+        if mode == "train" and q == 1:
+            if noise is None:
+                raise ValueError("train-mode entropy bottleneck needs its noise U(-0.5, 0.5)")
+            x_form = x + noise
+        else:
+            x_form = x_rounded
+        pred_in = x_rounded.detach() if net.spec.ctx_detach_pred else x_rounded
+        mu, sigma = net.entropy(pred_in, q, pred_noise)
+        return x_rounded, rate.gaussian_bits(x_form, sigma, mu, step=1.0)
     if mode == "train":
         if noise is None:
             raise ValueError("train-mode entropy bottleneck needs its noise U(-0.5, 0.5)")
@@ -237,19 +386,36 @@ def net_apply(
     compute_dtype=None,
 ):
     """Full forward (reference ``Net.forward``): returns ``(occupancy,
-    cls_list, net_bits (7,), latent_bits (B,))`` with the latent rate per
-    block, so that padded batches can be masked.
+    cls_list, net_bits, latent_bits (B,))`` with the latent rate per block,
+    so that padded batches can be masked. ``net_bits`` has one entry per
+    transmitted kernel: 7, and 9 in ctx modes (the masked ctx kernels' rate
+    joins the network rate).
 
     ``noise`` holds the U(-0.5, 0.5) draws: ``"latent"`` (shape of the
-    latents, train mode) and, at q=1, one per transmitted kernel under its
-    name. The latent generator, the bottleneck and all rate math stay f32
-    whatever ``compute_dtype`` is (see :meth:`CompDecoder.forward`)."""
+    latents, train mode; ctx modes only at q=1) and, at q=1, one per
+    transmitted kernel under its name (ctx1/ctx2 included in ctx modes). The
+    latent generator, the bottleneck and all rate math stay f32 whatever
+    ``compute_dtype`` is (see :meth:`CompDecoder.forward`)."""
     nz = noise or {}
     latent = net.latent_gen(emb)
-    latent_rounded, bits = entropy_apply(net, latent, mode, nz.get("latent"))
+    latent_rounded, bits = entropy_apply(net, latent, mode, nz.get("latent"), q, nz)
     latent_bits = bits.reshape(bits.shape[0], -1).sum(dim=1)
     out, cls_list, net_bits = net.decoder(latent_rounded, q, nz, compute_dtype=compute_dtype)
+    if net.spec.entropy_mode in CTX_MODES:
+        net_bits = torch.cat([net_bits, ctx_kernel_bits(net)])
     return out, cls_list, net_bits, latent_bits
+
+
+def ctx_kernel_bits(net: Net) -> torch.Tensor:
+    """(2,) rate of the mask-visible (transmitted) ctx kernel entries under
+    the weight-rate model. Masked taps never affect the output, so they are
+    neither coded nor counted."""
+    dec = net.decoder
+    wrate = {"sigma": dec.wrate.sigma, "mu": dec.wrate.mu}
+    return torch.stack([
+        rate.scalar_gaussian_rate(wrate, bypass_round16(m.kernel.reshape(-1)[m.mask_idx]))
+        for m in (net.entropy.ctx1, net.entropy.ctx2)
+    ])
 
 
 def reconstruct(decoder: CompDecoder, latent: torch.Tensor) -> torch.Tensor:
@@ -259,20 +425,23 @@ def reconstruct(decoder: CompDecoder, latent: torch.Tensor) -> torch.Tensor:
 
 
 def get_latent_code(net: Net, emb: torch.Tensor) -> dict:
-    """Quantized latents + the channel (sigma, mu) for the range coder."""
+    """Quantized latents + the channel (sigma, mu) for the range coder. In
+    ctx modes the host coder derives each symbol's table itself from the
+    rounded latents and the transmitted ctx params, so only the latents
+    export."""
     rounded, bits = entropy_apply(net, net.latent_gen(emb), mode="eval")
-    return {
-        "quantized_latent": rounded,
-        "latent_bits": bits.sum(),
-        "sigma": torch.abs(net.entropy.sigma),
-        "mu": net.entropy.mu,
-    }
+    out = {"quantized_latent": rounded, "latent_bits": bits.sum()}
+    if net.spec.entropy_mode == "channel":
+        out["sigma"] = torch.abs(net.entropy.sigma)
+        out["mu"] = net.entropy.mu
+    return out
 
 
 def get_network_bits(net: Net) -> float:
     """Signaled network size estimate in bits: kernel-residual rate plus the
     reference's fixed fp32 accounting of the as-is aux params and the
-    per-channel (sigma, mu)."""
+    entropy model (per-channel (sigma, mu); in ctx modes the masked ctx
+    kernels' residual rate plus their fp32 biases)."""
     dec = net.decoder
     wrate = {"sigma": dec.wrate.sigma, "mu": dec.wrate.mu}
     net_bits = sum(
@@ -281,7 +450,11 @@ def get_network_bits(net: Net) -> float:
     )
     c = net.spec.channels
     aux_bits = sum(c[i] * 2 for i in (1, 2, 3)) * 32 + 32 + (c[1] ** 2 + c[1]) * 32
-    entropy_bits = net.spec.ch * 2 * 32
+    if net.spec.entropy_mode in CTX_MODES:
+        entropy_bits = float(ctx_kernel_bits(net).sum())
+        entropy_bits += (net.spec.ctx_hidden + 2 * net.spec.ch) * 32
+    else:
+        entropy_bits = net.spec.ch * 2 * 32
     return net_bits + aux_bits + entropy_bits
 
 

@@ -16,6 +16,11 @@ stored DHWIO. The layout change happens here, inside the conv:
 - ``x.permute(0, 4, 1, 2, 3)`` of an NDHWC tensor is an NCDHW view in
   ``channels_last_3d`` memory format, which cuDNN takes without a copy.
 
+Masked convs (the latent context model, ``entropy_mode`` ctx / ctx_ar): a
+``QSpec`` with a ``mask`` zeroes kernel taps at and after the center in
+raster order (or gates the center tap by channel groups); the mask is
+applied after the seeded init is added back, as the JAX package does.
+
 Mixed-precision training (``compute_dtype="bf16"``): the master residual,
 the q-phase quantization and the seeded-init add stay f32
 (``effective_kernel``); then activation, effective kernel and bias are cast
@@ -26,6 +31,7 @@ then ``+ b``). Without a compute dtype nothing is cast.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -54,11 +60,23 @@ class QSpec:
     output_padding: int = 0
     kernel_init: np.ndarray = field(default=None, repr=False)
     b_init: np.ndarray = field(default=None, repr=False)
+    # causal tap mask (k,k,k,1,1) or (k,k,k,in,out), or None; applied AFTER
+    # the init is added back
+    mask: np.ndarray = field(default=None, repr=False)
 
     @property
     def kernel_shape(self) -> Tuple[int, ...]:
         k = self.kernel_size
         return (k, k, k, self.in_ch, self.out_ch)
+
+    @property
+    def mask_flat_indices(self) -> np.ndarray:
+        """Flat indices (into the C-order DHWIO kernel) of the mask-visible
+        taps: the only entries that affect the output, hence the only ones
+        coded."""
+        if self.mask is None:
+            raise ValueError("not a masked conv")
+        return np.flatnonzero(np.broadcast_to(self.mask, self.kernel_shape).reshape(-1))
 
 
 def make_qspec(
@@ -89,6 +107,45 @@ def make_qspec(
         kind=kind, in_ch=in_ch, out_ch=out_ch, kernel_size=kernel_size, stride=stride,
         padding=padding, output_padding=output_padding, kernel_init=kernel_init, b_init=b_init,
     )
+
+
+def causal_mask(kernel_size: int) -> np.ndarray:
+    """Strict raster-order causal mask (k,k,k,1,1): taps whose (d,h,w) offset
+    is lexicographically before the center are 1, the center and everything
+    after are 0. On a latent grid no wider than the raster stride, output
+    position i then depends only on input positions < i in C order."""
+    if kernel_size % 2 != 1:
+        raise ValueError("causal mask needs an odd kernel")
+    k, h = kernel_size, kernel_size // 2
+    m = np.zeros((k, k, k, 1, 1), np.float32)
+    m[:h, :, :] = 1.0
+    m[h, :h, :] = 1.0
+    m[h, h, :h] = 1.0
+    return m
+
+
+def channel_ar_mask(kernel_size: int, in_ch: int, out_ch: int, in_group, out_group,
+                    center_strict: bool) -> np.ndarray:
+    """The spatial causal mask plus a center tap gated by channel groups: the
+    same-position tap from input unit i to output unit o is visible iff
+    ``in_group(i) < out_group(o)`` (``center_strict``, first layer) or
+    ``<=`` (second layer), so (mu_c, sigma_c) see exactly the same-position
+    channels before c plus everything the spatial mask allows."""
+    k, h = kernel_size, kernel_size // 2
+    m = np.broadcast_to(causal_mask(kernel_size), (k, k, k, in_ch, out_ch)).copy()
+    gi = np.asarray([in_group(i) for i in range(in_ch)])
+    go = np.asarray([out_group(o) for o in range(out_ch)])
+    center = gi[:, None] < go[None, :] if center_strict else gi[:, None] <= go[None, :]
+    m[h, h, h] = center.astype(np.float32)
+    return m
+
+
+def make_masked_qspec(key: seeds.SeedKey, in_ch: int, out_ch: int, kernel_size: int = 3,
+                      mask: Optional[np.ndarray] = None) -> QSpec:
+    """Seeded causal masked conv: stride 1, 'same' padding, the strict raster
+    mask (or an explicit ``mask``, e.g. the channel-AR one)."""
+    base = make_qspec(key, "conv", in_ch, out_ch, kernel_size, 1, kernel_size // 2)
+    return dataclasses.replace(base, mask=causal_mask(kernel_size) if mask is None else mask)
 
 
 def as_compute_dtype(compute_dtype):
@@ -134,6 +191,11 @@ class QConv3d(nn.Module):
         self.register_buffer("kernel_init", torch.from_numpy(np.array(spec.kernel_init)))
         self.b = nn.Parameter(torch.zeros((spec.out_ch,), dtype=torch.float32))
         self.register_buffer("b_init", torch.from_numpy(np.array(spec.b_init)))
+        if spec.mask is not None:
+            self.register_buffer("mask", torch.from_numpy(np.array(spec.mask, np.float32)))
+            self.register_buffer("mask_idx", torch.from_numpy(spec.mask_flat_indices))
+        else:
+            self.mask = self.mask_idx = None
 
     def effective_kernel(self, q: int, noise: Optional[torch.Tensor] = None):
         """Quantize the residual per phase ``q`` and add the seeded init back."""
@@ -145,7 +207,8 @@ class QConv3d(nn.Module):
             k = bypass_round16(self.kernel)
         else:
             k = self.kernel
-        return k + self.kernel_init
+        k = k + self.kernel_init
+        return k if self.mask is None else k * self.mask
 
     def effective_bias(self):
         return self.b + self.b_init

@@ -1,5 +1,5 @@
 """Training loop: per-batch net updates + a once-per-epoch embedding update
-(port of ``nvfpcc_tpu/train/loop.py``, channel entropy mode).
+(port of ``nvfpcc_tpu/train/loop.py``; channel and ctx-family entropy modes).
 
 - The per-batch loop walks fixed-shape index batches; the variable last
   batch is a padded batch with a block mask, so the math is the JAX
@@ -40,7 +40,7 @@ from nvfpcc_tpu_torch.device import set_train_numerics
 from nvfpcc_tpu_torch.models import decoder as M
 from nvfpcc_tpu_torch.train import losses as L
 from nvfpcc_tpu_torch.utils import checkpoint as ckpt_util
-from nvfpcc_tpu_torch.utils.params import params_to_numpy
+from nvfpcc_tpu_torch.utils.params import params_from_numpy, params_to_numpy
 
 # the order of the per-step metric vector (rd_loss's dict, stacked on the
 # device and fetched once per epoch)
@@ -216,19 +216,25 @@ class NoiseSource:
     ``start_epoch`` re-seeds it from ``(seed, epoch)``; ``draw`` then yields,
     call by call (one per net step, then one per chunk of the embedding
     update), the U(-0.5, 0.5) latent noise of the given shape under
-    ``"latent"`` and, at q=1, one draw per transmitted kernel under its name.
+    ``"latent"`` and, at q=1, one draw per transmitted kernel under its name
+    (ctx1/ctx2 included in ctx modes). ctx modes form the rate on the rounded
+    latents at q=2, so there a step draws nothing.
     """
 
     def __init__(self, seed: int, spec: M.ModelSpec, device):
         self.seed = int(seed)
         self.device = torch.device(device)
         self.gen = torch.Generator(device=self.device)
-        self.kernel_shapes = {n: spec.specs[n].kernel_shape for n in M.TRANSMITTED_KERNELS}
+        self.ctx = spec.entropy_mode in M.CTX_MODES
+        names = M.TRANSMITTED_KERNELS + (M.CTX_KERNELS if self.ctx else ())
+        self.kernel_shapes = {n: spec.specs[n].kernel_shape for n in names}
 
     def start_epoch(self, epoch: int, n_batches: int) -> None:
         self.gen.manual_seed((self.seed * 1_000_003 + int(epoch)) % (1 << 63))
 
     def draw(self, latent_shape, q: int) -> Dict[str, torch.Tensor]:
+        if self.ctx and q != 1:
+            return {}
         shapes = {"latent": tuple(latent_shape)}
         if q == 1:
             shapes.update(self.kernel_shapes)
@@ -377,8 +383,14 @@ LATENT_GUARD = 480.0
 
 
 def initial_params(spec: M.ModelSpec, model_cfg: ModelConfig, device=None) -> M.Net:
-    """Training start params (channel mode: zero residuals, sigma 1, mu 0)."""
-    return M.init_params(spec, device)
+    """Training start params: zero residuals (channel mode: sigma 1, mu 0).
+    ``model_cfg.ctx_train_init="feature"`` starts the ctx predictor from
+    :func:`models.decoder.ctx_feature_init` instead of zero residuals
+    (measured worse for co-training by the JAX package, kept selectable)."""
+    net = M.init_params(spec)
+    if spec.entropy_mode in M.CTX_MODES and model_cfg.ctx_train_init == "feature":
+        params_from_numpy(net.entropy, M.ctx_feature_init(spec))
+    return net.to(device)
 
 
 def checkpoint_meta(model_cfg: ModelConfig) -> dict:
@@ -427,7 +439,8 @@ def train(
     n_blocks = int(gt.shape[0])
     n_total_pts = float(gt.sum())
     spec = M.build_model_spec(
-        model_cfg.ch, model_cfg.channels, model_cfg.seed_tag, model_cfg.entropy_mode
+        model_cfg.ch, model_cfg.channels, model_cfg.seed_tag, model_cfg.entropy_mode,
+        model_cfg.ctx_detach_pred, model_cfg.ctx_hidden, ctx_tail=model_cfg.ctx_tail,
     )
 
     emb_chunks = resolve_emb_chunks(cfg.emb_chunks, n_blocks)

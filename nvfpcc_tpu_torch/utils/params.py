@@ -3,7 +3,9 @@
 The JAX package keeps its params as a nested dict of arrays
 (``{"decoder": {"up0": {"kernel": ...}}}``, kernels DHWIO). The port's
 modules name their parameters by the same paths with ``.`` for ``/``, in the
-same layouts, so the mapping is a rename and a copy. An Adam state crosses
+same layouts, so the mapping is a rename and a copy; the ctx family's
+entropy subtree (``entropy/ctx1/kernel`` ...) maps to ``Net.entropy``, a
+``CtxPredictor``, the same way. An Adam state crosses
 the same way: optax's ``mu``/``nu`` trees and ``count`` are
 ``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq`` and ``step``.
 """

@@ -103,21 +103,19 @@ def test_parser_is_flag_compatible_with_the_jax_cli():
     assert train_flags(ap) == train_flags(jax_build_parser())
 
 
-@pytest.mark.parametrize("cmd", ["train", "weights"])
-def test_unported_commands_exit_clearly(cmd, tmp_path):
-    """What `train` and `weights` still refuse, each with its ROADMAP item:
-    block-DP (`--mesh`) and ctx-family checkpoints."""
-    if cmd == "train":
-        args, item = ["c.ply", "--epochs", "3", "--mesh"], "A16"
-    else:
-        spec = JM.build_model_spec(2, (4, 8, 4, 4))
-        tree = jax.tree_util.tree_map(np.asarray, JM.init_params(spec))
-        ckpt = jax_save_checkpoint(str(tmp_path), 0, tree, np.ones((3, 2, 2, 2, 2), np.float32),
-                                   meta={"ch": 2, "chanstr": "4,8,4,4", "entropy_mode": "ctx"})
-        args, item = [ckpt], "A13"
+@pytest.mark.parametrize("args,item", [
+    pytest.param(["train", "c.ply", "--epochs", "3", "--mesh"], "A16", id="train"),
+    # this case held `weights` on a ctx checkpoint, which runs since the ctx
+    # family was ported; it now holds the training refusal of the A12 modes
+    pytest.param(["train", "c.ply", "--entropy_mode", "gmm"], "A12", id="weights"),
+])
+def test_unported_commands_exit_clearly(args, item):
+    """What `train` still refuses, each with its ROADMAP item, before it
+    touches the cloud: block-DP (`--mesh`) and the spatio/gmm/factorized
+    entropy modes."""
     with pytest.raises(SystemExit, match=f"not ported.*ROADMAP {item}"):
-        main([cmd] + args)
-    r = handle({"cmd": cmd, "args": args})
+        main(args)
+    r = handle({"cmd": args[0], "args": args[1:]})
     assert r["ok"] is False and "not ported" in r["error"]
 
 
@@ -165,16 +163,24 @@ def test_train_then_encode_decode_in_one_process(tmp_path, capsys):
 
 
 def test_train_auto_resolving_to_ctx_exits_with_its_item(tmp_path, monkeypatch):
-    """`auto` picks ctx at level >= 6 above the symbol break-even (a
-    vox11-scale cloud); the port says which item ports it."""
+    """`auto` picks ctx at level >= 6 above the symbol break-even: on the
+    vox11 sphere's 5,326 blocks at level 6 the trainer starts in ctx mode
+    (zero predictor init, hidden 8, no tail), as the JAX CLI decides. The
+    name predates the ctx port, when this exited with ROADMAP A13."""
+    from nvfpcc_tpu.cli import resolve_auto_train as jax_resolve_auto_train
     from nvfpcc_tpu_torch import cli
+    from nvfpcc_tpu_torch.train import loop
 
     fake = {"origins": np.zeros((5326, 3), np.int64), "gt": None, "dist": None}
     monkeypatch.setattr(cli, "load_or_build_artifacts", lambda *a, **k: fake)
-    with pytest.raises(SystemExit, match="entropy_mode ctx is not ported.*ROADMAP A13"):
-        main(["train", "c.ply", "--depth", "11", "--level", "6", "--platform", "cpu"])
-    with pytest.raises(SystemExit, match="ROADMAP A13"):
-        main(["train", "c.ply", "--entropy_mode", "ctx_ar", "--platform", "cpu"])
+    seen = {}
+    monkeypatch.setattr(loop, "train", lambda gt, dist, mcfg, cfg, device, **k: seen.update(mcfg=mcfg))
+    assert main(["train", "c.ply", "--depth", "11", "--level", "6", "--platform", "cpu"]) == 0
+    m = seen["mcfg"]
+    assert (m.entropy_mode, m.ctx_hidden, m.ctx_tail, m.ctx_train_init) == ("ctx", 8, 0, "zero")
+    assert jax_resolve_auto_train(6, 5326 * 3 * 8) == "ctx"
+    assert main(["train", "c.ply", "--entropy_mode", "ctx_ar", "--ctx_tail", "2", "--platform", "cpu"]) == 0
+    assert (seen["mcfg"].entropy_mode, seen["mcfg"].ctx_tail) == ("ctx_ar", 2)
 
 
 def test_bad_requests():

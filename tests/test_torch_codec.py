@@ -18,6 +18,7 @@ from nvfpcc_tpu.octree.partition import leaf_origins
 from nvfpcc_tpu.utils import checkpoint as JCK
 from nvfpcc_tpu_torch import codec as TC
 from nvfpcc_tpu_torch.codec import weights as TW
+from nvfpcc_tpu_torch.config import ModelConfig as CodecModelConfig
 from nvfpcc_tpu_torch.models import decoder as TM
 from nvfpcc_tpu_torch.utils import checkpoint as TCK
 
@@ -183,7 +184,16 @@ def test_refusals(setup, tmp_path):
 
 @pytest.mark.parametrize("version,item", [(2, "A12"), (3, "A13")])
 def test_unported_mode_fixtures_refuse_clearly(version, item):
-    """pack_v2 (spatio) and pack_v3 (ctx) wait for their entropy modes."""
+    """pack_v2 (spatio) waits for its entropy mode (A12). pack_v3 (ctx) came
+    with A13 (the name predates it) and decodes: its latents equal the
+    golden ints exactly (tests/test_torch_ctx.py checks its points)."""
     pack = TC.load_pack(os.path.join(FIXDIR, f"pack_v{version}.pk"))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        TC.decode(pack, "cpu")
+    if item == "A12":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            TC.decode(pack, "cpu")
+        return
+    golden = np.load(os.path.join(FIXDIR, f"golden_v{version}.npz"))
+    spec = TC.model_spec(CodecModelConfig(ch=2, chanstr="4,8,4,4", entropy_mode="ctx"))
+    np.testing.assert_array_equal(TC.decode_latent_pack(spec, pack["latent_pack"]), golden["latents"])
+    points, info = TC.decode(pack, "cpu")
+    assert info["n_blocks"] == len(golden["origins"]) and len(points) > 0

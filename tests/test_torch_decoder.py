@@ -141,5 +141,18 @@ def test_train_mode_needs_noise(small):
 
 @pytest.mark.parametrize("mode", ["spatio", "gmm", "factorized", "ctx", "ctx_ar"])
 def test_other_entropy_modes_not_ported(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        TM.build_model_spec(2, (4, 8, 4, 4), entropy_mode=mode)
+    """spatio, gmm and factorized wait for ROADMAP A12. ctx and ctx_ar (the
+    name predates their port) build their spec: the channel layers' seeded
+    inits unchanged, plus the masked predictor (tests/test_torch_ctx.py
+    holds it against the JAX package)."""
+    if mode not in TM.CTX_MODES:
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+            TM.build_model_spec(2, (4, 8, 4, 4), entropy_mode=mode)
+        return
+    spec = TM.build_model_spec(2, (4, 8, 4, 4), entropy_mode=mode)
+    plain = TM.build_model_spec(2, (4, 8, 4, 4))
+    assert set(spec.specs) == set(plain.specs) | {"ctx1", "ctx2"}
+    for name, s in plain.specs.items():
+        np.testing.assert_array_equal(spec.specs[name].kernel_init, s.kernel_init)
+    assert spec.specs["ctx1"].kernel_shape == (3, 3, 3, 2, 8) and spec.specs["ctx2"].kernel_shape == (3, 3, 3, 8, 4)
+    assert spec.specs["ctx2"].mask is not None and isinstance(TM.init_params(spec).entropy, TM.CtxPredictor)

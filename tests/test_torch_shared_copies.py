@@ -1,6 +1,7 @@
 """The port's copies of the JAX package's jax-free format modules, held
 byte-equal (or value-equal) to their originals on seeded inputs: the range
-coder and Huffman coder, the octree partitioner (numpy and native paths),
+coder, the context-model coder and the Huffman coder, the octree
+partitioner (numpy and native paths),
 PLY I/O, the seed stream, the configs, the trainer's batch plan and the CLI's
 auto gates. A pack or a
 checkpoint written by either package must read the same in the other."""
@@ -13,6 +14,7 @@ import pytest
 
 import nvfpcc_tpu.cli as jax_cli
 import nvfpcc_tpu.config as jax_config
+from nvfpcc_tpu.coder import ctx_coder as jax_ctx
 from nvfpcc_tpu.coder import huffman as jax_huffman
 from nvfpcc_tpu.coder import range_coder as jax_rc
 from nvfpcc_tpu.io import ply as jax_ply
@@ -22,6 +24,7 @@ from nvfpcc_tpu.train import loop as jax_loop
 from nvfpcc_tpu.utils import seeds as jax_seeds
 from nvfpcc_tpu_torch import cli as port_cli
 from nvfpcc_tpu_torch import config as port_config
+from nvfpcc_tpu_torch.coder import ctx_coder as port_ctx
 from nvfpcc_tpu_torch.coder import huffman as port_huffman
 from nvfpcc_tpu_torch.coder import range_coder as port_rc
 from nvfpcc_tpu_torch.io import ply as port_ply
@@ -90,6 +93,47 @@ def test_range_coder_mixture_and_factorized_tables_equal():
         port_rc.build_cum_tables_factorized(params, ch),
         jax_rc.build_cum_tables_factorized(params, ch),
     )
+
+
+# ------------------------------------------------------- context-model coder
+
+
+@pytest.mark.parametrize("mode,tail", [("ctx", 0), ("ctx_ar", 3)])
+def test_ctx_coder_payloads_and_streams_byte_equal(mode, tail):
+    """The ctx payload, the integer predictor and the latent streams of the
+    port's copy equal the original's on the same specs and params, and each
+    package decodes the other's stream."""
+    from nvfpcc_tpu.models import decoder as jax_m
+    from nvfpcc_tpu_torch.models import decoder as port_m
+
+    kw = dict(entropy_mode=mode, ctx_hidden=8, ctx_tail=tail)
+    jspec, pspec = jax_m.build_model_spec(2, (4, 8, 4, 4), **kw), port_m.build_model_spec(2, (4, 8, 4, 4), **kw)
+    rng = np.random.default_rng(4)
+    ep = {n: {"kernel": (rng.integers(-7, 8, jspec.specs[n].kernel_shape) / 16).astype(np.float32),
+              "b": rng.normal(0, 0.4, jspec.specs[n].out_ch).astype(np.float32)} for n in ("ctx1", "ctx2")}
+    pj, pp = jax_ctx.build_ctx_payload(jspec, ep, 16), port_ctx.build_ctx_payload(pspec, ep, 16)
+    assert pp["res"]["bit_stream"] == pj["res"]["bit_stream"] and pp["qp"] == pj["qp"] == 16
+    assert pp["res"]["min_sym"] == pj["res"]["min_sym"] and pp["res"]["element_length"] == pj["res"]["element_length"]
+    np.testing.assert_array_equal(pp["res"]["counts"], pj["res"]["counts"])
+    assert port_ctx.ctx_payload_bits(pp) == jax_ctx.ctx_payload_bits(pj)
+    ij, ip = jax_ctx.ctx_ints_from_payload(jspec, pj), port_ctx.ctx_ints_from_payload(pspec, pj)
+    assert set(ij) == set(ip)
+    for k in ij:
+        np.testing.assert_array_equal(ip[k], ij[k])
+    lat = np.rint(rng.normal(0, 4, (30, 2, 2, 2, 2))).astype(np.int64)
+    for a, b in zip(port_ctx.predict_int(lat, ip), jax_ctx.predict_int(lat, ij)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(port_ctx.ExactPredictor(ip)(lat), jax_ctx.predict_int(lat, ij)):
+        np.testing.assert_array_equal(a, b)
+    ar = mode == "ctx_ar"
+    ej, epo = jax_ctx.encode_latents_ctx(lat, ij, ar), port_ctx.encode_latents_ctx(lat, ip, ar)
+    assert epo["stream"] == ej["stream"] and epo["shape"] == ej["shape"] and epo["n_clamped"] == ej["n_clamped"]
+    np.testing.assert_array_equal(port_ctx.decode_latents_ctx(ej["stream"], ej["shape"], ip, ar), lat)
+    np.testing.assert_array_equal(jax_ctx.decode_latents_ctx(epo["stream"], epo["shape"], ij, ar), lat)
+    for name in ("KSCALE", "OUT2_SCALE", "MU_GRID", "SIGMA_LEVELS", "_CAUSAL_OFFSETS", "_RASTER"):
+        assert getattr(port_ctx, name) == getattr(jax_ctx, name), name
+    np.testing.assert_array_equal(port_ctx._SIGMA_BOUNDS, jax_ctx._SIGMA_BOUNDS)
+    np.testing.assert_array_equal(port_ctx._SIGMA_VALS, jax_ctx._SIGMA_VALS)
 
 
 # -------------------------------------------------------------------- huffman

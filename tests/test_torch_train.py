@@ -25,6 +25,7 @@ import pytest
 import torch
 
 import torch_train_helpers as H
+from torch_train_helpers import assert_state_close as _assert_close
 from torch_train_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 from nvfpcc_tpu import codec as JC
 from nvfpcc_tpu.config import CodecConfig as JaxCodecConfig
@@ -41,24 +42,6 @@ from nvfpcc_tpu_torch.utils import params as TP
 
 N = 6
 EPOCH = 3  # the epoch number whose noise keys and batch plan the one-epoch tests use
-
-
-def _assert_close(got, want, atol=5e-6):
-    assert got["count"] == want["count"] and got["emb_count"] == want["emb_count"]
-    gp, wp = TP.flatten_tree(got["params"]), TP.flatten_tree(want["params"])
-    assert set(gp) == set(wp)
-
-    def rel(a, b, tol, what):
-        assert np.abs(a - b).max() <= tol * max(np.abs(b).max(), 1e-30), what
-
-    for k in wp:
-        assert gp[k].dtype == np.float32
-        np.testing.assert_allclose(gp[k], wp[k], rtol=0, atol=atol, err_msg=k)
-        rel(got["mu"][k], want["mu"][k], 1e-3, f"mu {k}")
-        rel(got["nu"][k], want["nu"][k], 2e-3, f"nu {k}")
-    np.testing.assert_allclose(got["emb"], want["emb"], rtol=0, atol=atol)
-    rel(got["emb_mu"], want["emb_mu"], 1e-3, "emb mu")
-    rel(got["emb_nu"], want["emb_nu"], 2e-3, "emb nu")
 
 
 def _assert_metrics_close(got: dict, want: dict, rtol=1e-5):

@@ -1,6 +1,8 @@
-"""Shared by tests/test_torch_losses.py and tests/test_torch_train.py: the
-toy training set, the JAX package's noise replayed for the port, and a JAX
-training state carried into the port (and both compared as numpy)."""
+"""Shared by the port's training tests (tests/test_torch_losses.py,
+tests/test_torch_train.py, tests/test_torch_ctx_train.py): the toy training
+set, the JAX package's noise replayed for the port, and a JAX training
+state carried into the port (and both compared as numpy). The model is the
+channel-mode toy unless a JAX spec is given."""
 
 import jax
 import jax.numpy as jnp
@@ -56,17 +58,30 @@ def jtree(tree):
     return jax.tree_util.tree_map(jnp.asarray, tree)
 
 
-def noise_from_key(key, latent_shape, q):
+def _uniform(key, shape):
+    return torch.as_tensor(np.array(jax.random.uniform(key, tuple(shape), jnp.float32, -0.5, 0.5)))
+
+
+def noise_from_key(key, latent_shape, q, spec=None):
     """The draws ``JM.net_apply`` makes from ``key``: (ekey, dkey) = split;
-    latent noise from ekey; at q=1 the seven kernel noises from split(dkey, 7)."""
-    spec = JM.build_model_spec(CH, CHANNELS)
+    at q=1 the seven kernel noises from split(dkey, 7). Channel mode: the
+    latent noise from ekey at either q. ctx modes draw only at q=1: (nkey,
+    pkey) = split(ekey), the latent noise from nkey, the ctx1/ctx2 kernel
+    noises from split(pkey)."""
+    spec = spec or JM.build_model_spec(CH, CHANNELS)
     ekey, dkey = jax.random.split(key)
-    out = {"latent": torch.as_tensor(np.array(
-        jax.random.uniform(ekey, tuple(latent_shape), jnp.float32, -0.5, 0.5)))}
+    out = {}
+    if spec.entropy_mode in JM.CTX_MODES:
+        if q == 1:
+            nkey, pkey = jax.random.split(ekey)
+            out["latent"] = _uniform(nkey, latent_shape)
+            for n, k in zip(JM.CTX_KERNELS, jax.random.split(pkey)):
+                out[n] = _uniform(k, spec.specs[n].kernel_shape)
+    else:
+        out["latent"] = _uniform(ekey, latent_shape)
     if q == 1:
         for n, k in zip(JM.TRANSMITTED_KERNELS, jax.random.split(dkey, 7)):
-            out[n] = torch.as_tensor(np.array(
-                jax.random.uniform(k, spec.specs[n].kernel_shape, jnp.float32, -0.5, 0.5)))
+            out[n] = _uniform(k, spec.specs[n].kernel_shape)
     return out
 
 
@@ -76,8 +91,8 @@ class JaxReplayNoise:
     n_batches + 1), the last one for the embedding update (split again per
     chunk when it is chunked)."""
 
-    def __init__(self, seed, emb_chunks=1):
-        self.seed, self.emb_chunks = seed, emb_chunks
+    def __init__(self, seed, emb_chunks=1, spec=None):
+        self.seed, self.emb_chunks, self.spec = seed, emb_chunks, spec
 
     def start_epoch(self, epoch, n_batches):
         keys = jax.random.split(
@@ -90,7 +105,7 @@ class JaxReplayNoise:
     def draw(self, latent_shape, q):
         key = self.keys[self.calls]
         self.calls += 1
-        return noise_from_key(key, latent_shape, q)
+        return noise_from_key(key, latent_shape, q, self.spec)
 
 
 def jax_state_numpy(params, opt_state, emb, emb_opt_state):
@@ -108,9 +123,10 @@ def jax_state_numpy(params, opt_state, emb, emb_opt_state):
     }
 
 
-def port_state_from_numpy(cfg, s) -> TT.TrainState:
-    """The port's TrainState holding the numpy state ``s`` (jax_state_numpy's layout)."""
-    net = TP.params_from_numpy(TM.init_params(TM.build_model_spec(CH, CHANNELS)), s["params"])
+def port_state_from_numpy(cfg, s, tspec=None) -> TT.TrainState:
+    """The port's TrainState holding the numpy state ``s`` (jax_state_numpy's
+    layout), on the port spec ``tspec`` (default the channel toy)."""
+    net = TP.params_from_numpy(TM.init_params(tspec or TM.build_model_spec(CH, CHANNELS)), s["params"])
     emb = torch.as_tensor(np.array(s["emb"], np.float32)).requires_grad_(True)
     opt, emb_opt = TT.make_optimizers(cfg, net, emb)
     TP.adam_state_from_numpy(opt, TP.named_params(net), s["mu"], s["nu"], s["count"])
@@ -118,6 +134,27 @@ def port_state_from_numpy(cfg, s) -> TT.TrainState:
         emb_opt, {"emb": emb}, {"emb": s["emb_mu"]}, {"emb": s["emb_nu"]}, s["emb_count"]
     )
     return TT.TrainState(net, opt, emb, emb_opt)
+
+
+def assert_state_close(got, want, atol=5e-6):
+    """Two training states (jax_state_numpy's layout) agree: step counts
+    exactly, params and embeddings to ``atol``, Adam first and second
+    moments to 1e-3 and 2e-3 of each leaf's largest magnitude."""
+    assert got["count"] == want["count"] and got["emb_count"] == want["emb_count"]
+    gp, wp = TP.flatten_tree(got["params"]), TP.flatten_tree(want["params"])
+    assert set(gp) == set(wp)
+
+    def rel(a, b, tol, what):
+        assert np.abs(a - b).max() <= tol * max(np.abs(b).max(), 1e-30), what
+
+    for k in wp:
+        assert gp[k].dtype == np.float32
+        np.testing.assert_allclose(gp[k], wp[k], rtol=0, atol=atol, err_msg=k)
+        rel(got["mu"][k], want["mu"][k], 1e-3, f"mu {k}")
+        rel(got["nu"][k], want["nu"][k], 2e-3, f"nu {k}")
+    np.testing.assert_allclose(got["emb"], want["emb"], rtol=0, atol=atol)
+    rel(got["emb_mu"], want["emb_mu"], 1e-3, "emb mu")
+    rel(got["emb_nu"], want["emb_nu"], 2e-3, "emb nu")
 
 
 def port_state_numpy(state: TT.TrainState):
@@ -130,10 +167,11 @@ def port_state_numpy(state: TT.TrainState):
     }
 
 
-def jax_fresh_state(jcfg, n_blocks, tree=None, emb=None):
+def jax_fresh_state(jcfg, n_blocks, tree=None, emb=None, spec=None):
     """(spec, params, opt_state, emb, emb_opt_state, net_opt, emb_opt) at a
-    run's start, or from a given numpy tree / embeddings."""
-    spec = JM.build_model_spec(CH, CHANNELS)
+    run's start, or from a given numpy tree / embeddings (on the JAX spec
+    ``spec``, default the channel toy)."""
+    spec = spec or JM.build_model_spec(CH, CHANNELS)
     params = JM.init_params(spec) if tree is None else jtree(tree)
     emb = JM.init_embeddings(n_blocks, CH) if emb is None else jnp.asarray(emb)
     net_opt, emb_opt = JT.make_optimizers(jcfg, -(-n_blocks // jcfg.batch_size))
