@@ -31,6 +31,21 @@ plus a decode of the JAX-made ctx pack ``pack_v3.pk`` against its golden
 latents. It prints the ctx epoch seconds, the fit's seconds and steps per
 second, and each pack's bpp split and ctx payload bits.
 
+Then bf16 reconstruction: encode of the channel checkpoint with
+``--recon_dtype bf16`` at the same threshold -> decode in a second process,
+byte-equal -> eval (D1); it prints the share of points that differ from the
+f32 reconstruction and the warm in-process decode of the f32 and the bf16
+pack (median of 5, CUDA events). Then the other latent entropy modes:
+
+    for spatio, gmm, factorized: train (1 epoch at q=1, 1 at q=2, bf16)
+    -> encode; then one second process (``serve``) decodes the three packs,
+    each byte-equal to its encoder's cloud -> eval (D1) of each
+
+plus a decode of the JAX-made spatio pack ``pack_v2.pk`` against its golden
+latents; it prints each mode's epoch seconds, bpp split and latent table
+bits. Last, ``eval --d2`` on the channel reconstruction: four EDT launches
+(two for D1, two for D2) and the host seconds of the normals.
+
 Usage, from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--workdir DIR]
@@ -347,14 +362,16 @@ def phase_fixture(torch) -> None:
 
 
 def encode_numbers(out: str) -> dict:
-    """bpp split, pack size and ctx payload bits from an ``[encode]`` line."""
+    """bpp split, pack size and ctx payload or latent table bits from an
+    ``[encode]`` line."""
     m = re.search(r"-> (\d+) B pack \| bpp ([\d.]+) \(latent ([\d.]+) net ([\d.]+) origins ([\d.]+)\) "
-                  r"\| recon (\d+) pts(?: \| ctx payload (\d+) bits)?", out)
+                  r"\| recon (\d+) pts \| (ctx payload|latent tables) (\d+) bits", out)
     if m is None:
         fail("no [encode] summary line")
     return {"pack_bytes": int(m[1]), "bpp": float(m[2]), "b_latent": float(m[3]), "b_net": float(m[4]),
             "b_origins": float(m[5]), "n_points_rec": int(m[6]),
-            "ctx_payload_bits": int(m[7]) if m[7] else None}
+            "ctx_payload_bits": int(m[8]) if m[7] == "ctx payload" else None,
+            "latent_table_bits": int(m[8]) if m[7] == "latent tables" else None}
 
 
 def decode_in_second_process(pack: str, rc_dec: str) -> float:
@@ -370,6 +387,35 @@ def decode_in_second_process(pack: str, rc_dec: str) -> float:
         print(dec.stderr)
         fail(f"decode process exited {dec.returncode}")
     return secs
+
+
+def run_eval(K, ref: str, rec: str, *flags) -> dict:
+    """``eval`` on the card: seconds, EDT launches and the PSNR lines."""
+    before = K.LAUNCHES
+    t = time.time()
+    out = run_cli(["eval", ref, rec, "--depth", "10", "--platform", "device", *flags])
+    row = {"eval_s": time.time() - t, "launches": K.LAUNCHES - before}
+    for name in ("D1", "D2"):
+        m = re.search(name + r" PSNR ([\d.]+|inf)", out)
+        if m:
+            row[f"{name.lower()}_psnr"] = float(m[1])
+    m = re.search(r"D2 seconds: normals ([\d.]+), nearest-neighbour vectors ([\d.]+) \(EDT ([\d.]+)\)", out)
+    if m:
+        row.update(normals_s=float(m[1]), nn_s=float(m[2]), edt_s=float(m[3]))
+    if row["launches"] < 1 or "d1_psnr" not in row:
+        fail(f"eval of {rec} did not run the EDT kernel or print D1")
+    return row
+
+
+def same_bytes(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def point_set(path: str) -> set:
+    from nvfpcc_tpu_torch.cli import read_ply_points
+
+    return set(map(tuple, np.rint(read_ply_points(path)).astype(np.int64)))
 
 
 def phase_ctx(torch, K, w, n_points: int, n_blocks: int) -> dict:
@@ -424,54 +470,149 @@ def phase_ctx(torch, K, w, n_points: int, n_blocks: int) -> dict:
             row.update(fit_steps=int(fit[1]), fit_s=float(fit[2]), fit_steps_per_s=float(fit[3]),
                        fit_log=[ln for ln in out.splitlines() if ln.startswith("[ctx_fit]")])
         row["decode_s"] = decode_in_second_process(pack, dec)
-        with open(enc, "rb") as a, open(dec, "rb") as b:
-            row["parity"] = a.read() == b.read()
+        row["parity"] = same_bytes(enc, dec)
         n_rec = len(read_ply_points(dec))
         log(f"ctx {name}: " + json.dumps({k: v for k, v in row.items() if k != "fit_log"}))
         if not row["parity"] or n_rec == 0 or row["ctx_payload_bits"] is None:
             fail(f"ctx {name}: rc_enc != rc_dec across processes, an empty cloud, or no ctx payload")
         stats[name] = row
 
-    before = K.LAUNCHES
-    t = time.time()
-    out = run_cli(["eval", w("sphere.ply"), w("rc_dec_ctx_post.ply"), "--depth", "10", "--platform", "device"])
-    stats["eval_s"] = time.time() - t
-    stats["eval_launches"] = K.LAUNCHES - before
-    m = re.search(r"D1 PSNR ([\d.]+|inf)", out)
-    if stats["eval_launches"] < 1 or m is None:
-        fail("ctx eval did not run the EDT kernel")
-    stats["d1_psnr"] = float(m[1])
-    log(f"ctx eval: D1 {stats['d1_psnr']} dB, EDT launches {stats['eval_launches']}")
+    stats["eval"] = run_eval(K, w("sphere.ply"), w("rc_dec_ctx_post.ply"))
+    log(f"ctx eval: D1 {stats['eval']['d1_psnr']} dB, EDT launches {stats['eval']['launches']}")
     return stats
 
 
-def phase_ctx_fixture(torch) -> None:
-    """The JAX-made ctx pack (format v3) decodes on the card: latents equal
-    to its golden ints, points equal to a reconstruction from them."""
+def phase_mode_fixture(version: int, mode: str) -> None:
+    """A JAX-made pack of another latent mode (``pack_v3.pk``: ctx;
+    ``pack_v2.pk``: spatio with Huffman weights) decodes on the card:
+    latents equal to its golden ints, points equal to a reconstruction from
+    the golden arrays."""
     from nvfpcc_tpu_torch import codec
     from nvfpcc_tpu_torch.codec import weights as W
     from nvfpcc_tpu_torch.config import ModelConfig
 
     fix = os.path.join(ROOT, "tests", "fixtures", "packs")
-    pack = codec.load_pack(os.path.join(fix, "pack_v3.pk"))
-    golden = np.load(os.path.join(fix, "golden_v3.npz"))
-    spec = codec.model_spec(ModelConfig(ch=2, chanstr="4,8,4,4", entropy_mode="ctx"))
+    pack = codec.load_pack(os.path.join(fix, f"pack_v{version}.pk"))
+    golden = np.load(os.path.join(fix, f"golden_v{version}.npz"))
+    spec = codec.model_spec(ModelConfig(ch=2, chanstr="4,8,4,4", entropy_mode=mode))
     lat = codec.decode_latent_pack(spec, pack["latent_pack"])
     points, info = codec.decode(pack, "cuda")
     live = codec.reconstruct_points(
         codec.decoder_from_tree(spec, W.unpack_weights(pack["net_weight_pack"]), "cuda"),
         golden["latents"].astype(np.float32), golden["origins"], float(pack["codec"]["thh"]))
     ok = np.array_equal(lat, golden["latents"]) and np.array_equal(points, live) and len(points) > 0
-    log(f"pack_v3 (JAX-made ctx): {info['n_blocks']} blocks -> {len(points)} pts, latents equal to the "
-        f"golden ints and points to the golden reconstruction: {ok}")
+    log(f"pack_v{version} (JAX-made {mode}): {info['n_blocks']} blocks -> {len(points)} pts, latents equal "
+        f"to the golden ints and points to the golden reconstruction: {ok}")
     if not ok:
-        fail("pack_v3 decode differs from its golden arrays")
+        fail(f"pack_v{version} decode differs from its golden arrays")
+
+
+def warm_decode_ms(torch, packs: dict, reps: int = 5) -> dict:
+    """Median ms of an in-process decode of each pack (CUDA events around the
+    whole call, which ends in a host fetch), the packs taken in turns."""
+    from nvfpcc_tpu_torch import codec
+
+    loaded = {k: codec.load_pack(p) for k, p in packs.items()}
+    for pack in loaded.values():
+        codec.decode(pack, "cuda")
+    times = {k: [] for k in loaded}
+    for _ in range(reps):
+        for k, pack in loaded.items():
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            codec.decode(pack, "cuda")
+            e1.record()
+            torch.cuda.synchronize()
+            times[k].append(e0.elapsed_time(e1))
+    return {k: {"median_ms": float(np.median(v)), "all_ms": v} for k, v in times.items()}
+
+
+def phase_bf16(torch, K, w, thh: float) -> dict:
+    """The channel checkpoint encoded with ``--recon_dtype bf16`` at the
+    f32 pack's threshold, decoded in a second process, compared with the
+    f32 reconstruction, timed warm against the f32 pack, and scored."""
+    common = [w("sphere.ply"), "--depth", "10", "--level", "5", "--platform", "device"]
+    t = time.time()
+    out = run_cli(["encode", *common, "--load_checkpoint", w("ckpt"), "--pack_fn", w("pack_bf16.pk"),
+                   "--recon", w("rc_enc_bf16.ply"), "--thh", str(thh), "--recon_dtype", "bf16"])
+    stats = {"thh": thh, "encode_s": time.time() - t, **encode_numbers(out)}
+    stats["decode_s"] = decode_in_second_process(w("pack_bf16.pk"), w("rc_dec_bf16.ply"))
+    stats["parity"] = same_bytes(w("rc_enc_bf16.ply"), w("rc_dec_bf16.ply"))
+    f32_pts, bf16_pts = point_set(w("rc_enc.ply")), point_set(w("rc_enc_bf16.ply"))
+    stats.update(n_points_f32=len(f32_pts), n_points_bf16=len(bf16_pts),
+                 flipped=len(f32_pts ^ bf16_pts), flip_share=len(f32_pts ^ bf16_pts) / max(len(f32_pts), 1))
+    if not stats["parity"] or not bf16_pts:
+        fail("bf16 pack: rc_enc != rc_dec across processes, or an empty cloud")
+    from nvfpcc_tpu_torch import codec
+
+    if codec.load_pack(w("pack_bf16.pk"))["codec"].get("recon_dtype") != "bf16":
+        fail("the bf16 pack does not carry codec.recon_dtype bf16")
+    stats["warm_decode"] = warm_decode_ms(torch, {"f32": w("pack.pk"), "bf16": w("pack_bf16.pk")})
+    stats["eval"] = run_eval(K, w("sphere.ply"), w("rc_dec_bf16.ply"))
+    log("bf16 recon: " + json.dumps(stats))
+    return stats
+
+
+MODES = ("spatio", "gmm", "factorized")
+
+
+def phase_modes(torch, K, w, n_points: int, n_blocks: int) -> dict:
+    """spatio, gmm and factorized: train, encode, decode all three packs in
+    one second process (the warm server), eval each reconstruction."""
+    from nvfpcc_tpu_torch.tools.ctx_recipe import threshold_keeping
+    from nvfpcc_tpu_torch.utils import checkpoint as C
+
+    common = [w("sphere.ply"), "--depth", "10", "--level", "5", "--platform", "device"]
+    stats = {}
+    for mode in MODES:
+        ck = w(f"ckpt_{mode}")
+        t = time.time()
+        out = run_cli(["train", *common, "--entropy_mode", mode, "--epochs", "2", "--phase_change", "1",
+                       "--eval_every", "1", "--checkpoint_dir", ck, "--metrics", w(f"train_{mode}.jsonl")])
+        row = {"train_s": time.time() - t, "epoch_s": epoch_seconds(out)}
+        rows = train_rows(w(f"train_{mode}.jsonl"))
+        if [(r["epoch"], r["q"]) for r in rows] != [(0, 1), (1, 2)] or not all(np.isfinite(r["loss"]) for r in rows):
+            fail(f"{mode} train rows: {rows}")
+        row["loss"] = [r["loss"] for r in rows]
+        row["b_latent_train"] = [r["b_latent"] for r in rows]
+        params, emb, meta = C.load_checkpoint_meta(os.path.join(ck, "0001.npz"))
+        if meta["entropy_mode"] != mode or emb.shape != (n_blocks, 2, 2, 2, 3):
+            fail(f"{mode} checkpoint meta {meta}, embeddings {emb.shape}")
+        row["thh"] = threshold_keeping(ck, n_points, "cuda")
+        t = time.time()
+        out = run_cli(["encode", *common, "--load_checkpoint", ck, "--pack_fn", w(f"pack_{mode}.pk"),
+                       "--recon", w(f"rc_enc_{mode}.ply"), "--thh", str(row["thh"])])
+        row.update(encode_s=time.time() - t, **encode_numbers(out))
+        if not row["latent_table_bits"]:
+            fail(f"{mode} encode reported no latent table bits")
+        stats[mode] = row
+
+    # one second process decodes the three packs: `import torch` once
+    reqs = "".join(json.dumps({"cmd": "decode", "args": [w(f"pack_{m}.pk"), "--recon", w(f"rc_dec_{m}.ply"),
+                                                        "--platform", "device"]}) + "\n" for m in MODES)
+    t = time.time()
+    srv = subprocess.run([sys.executable, "-m", "nvfpcc_tpu_torch.serve"], cwd=ROOT, input=reqs,
+                         capture_output=True, text=True, timeout=900)
+    stats["decode_process_s"] = time.time() - t
+    print(srv.stderr, end="")
+    replies = [json.loads(line) for line in srv.stdout.splitlines() if line.strip()]
+    if srv.returncode or replies != [{"ok": True, "status": 0}] * len(MODES):
+        fail(f"the decode server exited {srv.returncode} with {replies}")
+    for mode in MODES:
+        row = stats[mode]
+        row["parity"] = same_bytes(w(f"rc_enc_{mode}.ply"), w(f"rc_dec_{mode}.ply"))
+        if not row["parity"] or row["n_points_rec"] == 0:
+            fail(f"{mode}: rc_enc != rc_dec across processes, or an empty cloud")
+        row["eval"] = run_eval(K, w("sphere.ply"), w(f"rc_dec_{mode}.ply"))
+        log(f"mode {mode}: " + json.dumps(row))
+    return stats
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workdir", default=os.path.join(ROOT, ".work", "chip_smoke"))
     args = ap.parse_args()
+    t_start = time.time()
 
     import torch
 
@@ -538,14 +679,12 @@ def main() -> int:
     log(f"encode: pack {os.path.getsize(w('pack.pk'))} bytes")
 
     secs["decode"] = decode_in_second_process(w("pack.pk"), w("rc_dec.ply"))
-    with open(w("rc_enc.ply"), "rb") as a, open(w("rc_dec.ply"), "rb") as b:
-        enc_bytes, dec_bytes = a.read(), b.read()
+    parity = same_bytes(w("rc_enc.ply"), w("rc_dec.ply"))
     from nvfpcc_tpu_torch.cli import read_ply_points
 
     n_rec = len(read_ply_points(w("rc_dec.ply")))
-    log(f"rc_enc.ply == rc_dec.ply bit-exact across processes: {enc_bytes == dec_bytes} "
-        f"({n_rec} points)")
-    if enc_bytes != dec_bytes or n_rec == 0:
+    log(f"rc_enc.ply == rc_dec.ply bit-exact across processes: {parity} ({n_rec} points)")
+    if not parity or n_rec == 0:
         fail("encode/decode parity failed or the reconstruction is empty")
 
     # the same pack decoded again in this (warm) process: the stage time
@@ -563,14 +702,9 @@ def main() -> int:
 
     phase_fixture(torch)
 
-    before = K.LAUNCHES
-    t = time.time()
-    out = run_cli(["eval", w("sphere.ply"), w("rc_dec.ply"), "--depth", "10", "--platform", "device"])
-    secs["eval"] = time.time() - t
-    eval_launches = K.LAUNCHES - before
+    ev = run_eval(K, w("sphere.ply"), w("rc_dec.ply"))
+    secs["eval"], eval_launches = ev["eval_s"], ev["launches"]
     log(f"eval: EDT launches {eval_launches}")
-    if eval_launches < 1 or "D1 PSNR" not in out:
-        fail("eval did not run the EDT kernel")
     launches = K.LAUNCHES
     log("seconds per stage: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
     log("train: " + json.dumps(tstats))
@@ -580,21 +714,54 @@ def main() -> int:
     t = time.time()
     cstats = phase_ctx(torch, K, w, len(pts), len(origins))
     ctx_launches = K.LAUNCHES
-    phase_ctx_fixture(torch)
+    phase_mode_fixture(3, "ctx")
     log(f"ctx path: {time.time() - t:.2f} s, EDT launches {ctx_launches}")
     log("ctx: " + json.dumps({k: ({kk: vv for kk, vv in v.items() if kk != "fit_log"} if isinstance(v, dict) else v)
                               for k, v in cstats.items()}))
     if ctx_launches < 1:
         fail("the ctx path did not launch the EDT kernel")
+
+    # 6. bf16 reconstruction of the channel checkpoint; its own launch count
+    K.LAUNCHES = 0
+    t = time.time()
+    bstats = phase_bf16(torch, K, w, thh)
+    bf16_launches = K.LAUNCHES
+    log(f"bf16 path: {time.time() - t:.2f} s, EDT launches {bf16_launches}")
+
+    # 7. the spatio, gmm and factorized modes on the same grids
+    K.LAUNCHES = 0
+    t = time.time()
+    mstats = phase_modes(torch, K, w, len(pts), len(origins))
+    modes_launches = K.LAUNCHES
+    phase_mode_fixture(2, "spatio")
+    log(f"modes path: {time.time() - t:.2f} s, EDT launches {modes_launches}")
+
+    # 8. D2 of the channel reconstruction: 2 EDT launches for D1, 2 for D2
+    K.LAUNCHES = 0
+    d2 = run_eval(K, w("sphere.ply"), w("rc_dec.ply"), "--d2")
+    d2_launches = K.LAUNCHES
+    log("eval --d2: " + json.dumps(d2))
+    if d2_launches != 4 or "d2_psnr" not in d2:
+        fail(f"eval --d2 launched the EDT kernel {d2_launches} times (4 expected) or printed no D2")
+    log("summary: " + json.dumps({
+        "bf16": {k: bstats[k] for k in ("flip_share", "parity")} | {
+            k: v["median_ms"] for k, v in bstats["warm_decode"].items()},
+        "modes": {m: {k: mstats[m][k] for k in ("epoch_s", "bpp", "b_latent", "b_net", "b_origins",
+                                                "latent_table_bits", "parity")} for m in MODES},
+        "mode_decode_process_s": mstats["decode_process_s"],
+        "d2": d2,
+    }))
     shutil.rmtree(args.workdir, ignore_errors=True)
+    log(f"total {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "squared_edt_3d",
         "route": "cuda",
         "source": "nvfpcc_tpu_torch/csrc/edt.cu",
         "replaces": "nvfpcc_tpu/ops/pallas/edt_pallas.py:157",
-        "launches": launches + ctx_launches,
-        "launches_by_stage": {"grids": grids_launches, "eval": eval_launches, "ctx_eval": ctx_launches},
+        "launches": launches + ctx_launches + bf16_launches + modes_launches + d2_launches,
+        "launches_by_stage": {"grids": grids_launches, "eval": eval_launches, "ctx_eval": ctx_launches,
+                              "bf16_eval": bf16_launches, "modes_eval": modes_launches, "eval_d2": d2_launches},
         **kstats,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -16,9 +16,11 @@ Flag-compatible with ``python -m nvfpcc_tpu.cli``:
 ``device`` run on the CUDA card (the EDT kernel included) and fail if there
 is none. Checkpoints and packs are the JAX package's formats, so a JAX
 checkpoint encodes here and packs decode in either package. ``train`` runs
-the ``channel``, ``ctx`` and ``ctx_ar`` entropy modes on one device;
-``encode --ctx_post`` fits the context predictor post hoc. ``--mesh`` and
-the other modes exit with the ROADMAP item that ports them.
+every entropy mode on one device; ``encode --ctx_post`` fits the context
+predictor post hoc; ``encode --recon_dtype bf16`` writes a pack whose
+reconstruction runs in bfloat16 on both ends; ``eval --d2`` adds the
+point-to-plane D2 PSNR. ``train --mesh`` exits with the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ import torch
 from nvfpcc_tpu_torch.config import CodecConfig, ModelConfig, TrainConfig
 from nvfpcc_tpu_torch.device import PLATFORMS, resolve_device
 from nvfpcc_tpu_torch.io.ply import read_ply_points, write_ply_points
-from nvfpcc_tpu_torch.models import decoder as M
 
 # The helpers from here to ``_DEFAULT_CHANSTR`` are copies of
 # ``nvfpcc_tpu/cli.py``'s (the artifact name, the model flags and the auto
@@ -266,11 +267,6 @@ def cmd_train(args) -> int:
 
     if args.mesh:
         raise SystemExit("train --mesh (block-DP) is not ported to nvfpcc_tpu_torch yet (ROADMAP A16)")
-    if args.entropy_mode in M.NOT_PORTED_MODES:
-        raise SystemExit(
-            f"train --entropy_mode {args.entropy_mode} is not ported to nvfpcc_tpu_torch yet "
-            f"(ROADMAP {M.NOT_PORTED_MODES[args.entropy_mode]})"
-        )
     device = resolve_device(args.platform)
     art = load_or_build_artifacts(args.cloud, args.depth, args.level, device)
     ch = args.ch if args.ch is not None else _DEFAULT_CH
@@ -367,7 +363,8 @@ def cmd_encode(args) -> int:
         f"{size} B pack | bpp {s['bpp']:.4f} "
         f"(latent {s['b_latent']:.4f} net {s['b_net']:.4f} origins {s['b_origins']:.4f}) "
         f"| recon {s['n_points_rec']} pts"
-        + (f" | ctx payload {s['ctx_payload_bits']} bits" if "ctx_payload_bits" in s else "")
+        + (f" | ctx payload {s['ctx_payload_bits']} bits" if "ctx_payload_bits" in s
+           else f" | latent tables {s['latent_table_bits']} bits")
     )
     if args.recon:
         write_ply_points(args.recon, result.points, ascii=False)
@@ -395,11 +392,9 @@ def cmd_decode(args) -> int:
 
 
 def cmd_eval(args) -> int:
-    """D1 PSNR between two point clouds."""
-    from nvfpcc_tpu_torch.metrics.d1 import d1_psnr
+    """D1 (and with ``--d2`` point-to-plane D2) PSNR between two point clouds."""
+    from nvfpcc_tpu_torch.metrics import d1_psnr, d2_psnr
 
-    if args.d2:
-        raise SystemExit("eval --d2 is not ported to nvfpcc_tpu_torch yet (ROADMAP A10)")
     device = resolve_device(args.platform)
     ref = np.rint(read_ply_points(args.ref)).astype(np.int64)
     rec = np.rint(read_ply_points(args.rec)).astype(np.int64)
@@ -408,6 +403,16 @@ def cmd_eval(args) -> int:
         f"[eval] D1 PSNR {m['psnr']:.4f} dB | mse(ref->rec) {m['mse_ab']:.6f} "
         f"mse(rec->ref) {m['mse_ba']:.6f} | {len(ref)} vs {len(rec)} pts"
     )
+    if args.d2:
+        m2 = d2_psnr(ref, rec, depth=args.depth, device=device)
+        print(
+            f"[eval] D2 PSNR {m2['psnr']:.4f} dB | p2plane mse(ref->rec) "
+            f"{m2['mse_ab']:.6f} mse(rec->ref) {m2['mse_ba']:.6f}"
+        )
+        print(
+            f"[eval] D2 seconds: normals {m2['normals_s']:.2f}, nearest-neighbour "
+            f"vectors {m2['nn_s']:.2f} (EDT {m2['edt_s']:.2f})"
+        )
     return 0
 
 
@@ -507,8 +512,11 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--recon", type=str, default=None, help="write rc_enc.ply here")
     e.add_argument("--thh", type=float, default=0.65)
     e.add_argument("--qp", type=int, default=16)
-    e.add_argument("--recon_dtype", choices=("f32", "bf16"), default="f32",
-                   help="reconstruction dtype (bf16 is not ported yet)")
+    e.add_argument(
+        "--recon_dtype", choices=("f32", "bf16"), default="f32",
+        help="reconstruction dtype; bf16 runs the decode chain in bfloat16 (rides in "
+        "the pack, so both ends run it)",
+    )
     e.add_argument(
         "--ctx_post", action="store_true",
         help="fit the ctx/ctx_ar predictor post hoc on the checkpoint's frozen "
@@ -535,10 +543,13 @@ def build_parser() -> argparse.ArgumentParser:
     _add_platform(d)
     d.set_defaults(fn=cmd_decode)
 
-    ev = sub.add_parser("eval", help="D1 PSNR between two .ply clouds")
+    ev = sub.add_parser("eval", help="D1 (and optional D2) PSNR between two .ply clouds")
     ev.add_argument("ref")
     ev.add_argument("rec")
-    ev.add_argument("--d2", action="store_true", help="not ported yet")
+    ev.add_argument(
+        "--d2", action="store_true",
+        help="also report point-to-plane D2 PSNR (PCA normals over a radius-2 window)",
+    )
     _add_common(ev)
     ev.set_defaults(fn=cmd_eval)
 

@@ -1,14 +1,24 @@
 """Encode/decode orchestration + the ``pack.pk`` container (port of
-``nvfpcc_tpu/codec/codec.py``; channel and ctx-family latent packs).
+``nvfpcc_tpu/codec/codec.py``; every latent mode).
 
 A pack is a pickled dict of three payloads — entropy-packed decoder
 weights, octree-coded block origins, range-coded latents — plus the model
 metadata that rebuilds the seeded decoder. Packs are byte-compatible with
-the JAX package's in both directions. In ctx modes (format v3 latent packs)
-the latent pack also carries the ctx payload (the masked predictor's
-kernel residual ints and biases), and the symbols are coded under tables
-that the host's integer-exact predictor (``coder/ctx_coder.py``) derives
-from the already-coded prefix, the same on both ends.
+the JAX package's in both directions. Latent packs by entropy mode:
+
+- channel / spatio: Gaussian tables from the exact f32 ``(sigma, mu)``
+  that travel in the pack, per channel or per latent position;
+- gmm / factorized: per-channel integer tables that both ends build with
+  ``RC.build_cum_tables_gmm`` / ``build_cum_tables_factorized`` from the
+  same f32 params the pack carries (:func:`_model_latent_tables`);
+- ctx / ctx_ar (format v3): the ctx payload (the masked predictor's kernel
+  residual ints and biases), with per-symbol tables that the host's
+  integer-exact predictor (``coder/ctx_coder.py``) derives from the
+  already-coded prefix, the same on both ends.
+
+``codec.recon_dtype: "bf16"`` (written only when asked for; absent means
+f32) runs the reconstruction on a decoder cast to bfloat16; the occupancy
+is upcast to f32 before the threshold compare.
 
 Fidelity gate: the encoder reconstructs from its OWN unpacked weight pack
 and the exact integer latents it coded, through the same decoder program
@@ -40,6 +50,8 @@ from nvfpcc_tpu_torch.utils.params import params_from_numpy
 PACK_FORMAT_VERSION = 4
 _DECODABLE_VERSIONS = (1, 2, 3, 4)
 RECON_BATCH = 128
+RECON_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+TABLE_MODES = ("gmm", "factorized")  # latent modes coded under per-channel model tables
 
 
 def encode_origins(origins: np.ndarray, depth: int, level: int) -> dict:
@@ -73,10 +85,23 @@ def model_spec(model_cfg: ModelConfig) -> M.ModelSpec:
     )
 
 
-def decoder_from_tree(spec: M.ModelSpec, tree: dict, device) -> M.CompDecoder:
-    """A CompDecoder on ``device`` holding the (decode-minimal) tree's weights."""
+def decoder_from_tree(spec: M.ModelSpec, tree: dict, device, recon_dtype: str = "f32") -> M.CompDecoder:
+    """A CompDecoder on ``device`` holding the (decode-minimal) tree's
+    weights, cast with its seeded inits to the pack's ``recon_dtype``."""
+    if recon_dtype not in RECON_DTYPES:
+        raise ValueError(f"unsupported recon_dtype: {recon_dtype!r}")
     dec = params_from_numpy(M.CompDecoder(spec), tree["decoder"], strict=False)
-    return dec.to(device).eval()
+    return dec.to(device, RECON_DTYPES[recon_dtype]).eval()
+
+
+def _model_latent_tables(mode: str, params: dict, ch: int) -> np.ndarray:
+    """Per-channel integer CDF tables of the gmm / factorized latent modes,
+    from the exact f32 params that travel in the pack (both ends call this)."""
+    if mode == "gmm":
+        return RC.build_cum_tables_gmm(params["sigma"], params["mu"], params["p_logit"])
+    if mode == "factorized":
+        return RC.build_cum_tables_factorized(params, ch)
+    raise ValueError(f"unknown latent table mode: {mode}")
 
 
 @torch.no_grad()
@@ -132,13 +157,6 @@ def extract_points(occ: np.ndarray, origins: np.ndarray, thh: float) -> np.ndarr
     return idx[:, 1:].astype(np.int64) + np.asarray(origins, np.int64)[idx[:, 0]]
 
 
-def _check_recon_dtype(recon_dtype: str) -> None:
-    if recon_dtype != "f32":
-        raise NotImplementedError(
-            f"recon_dtype {recon_dtype!r} is not ported to nvfpcc_tpu_torch yet (ROADMAP A14)"
-        )
-
-
 def encode(
     params: dict,
     emb: np.ndarray,
@@ -151,13 +169,15 @@ def encode(
     """Produce the pack + the encoder-side reconstruction. ``params`` is a
     full numpy params tree (a checkpoint's, JAX layout)."""
     spec = model_spec(model_cfg)
-    _check_recon_dtype(getattr(codec_cfg, "recon_dtype", "f32"))
+    recon_dtype = codec_cfg.recon_dtype
 
-    # [WEIGHTS] quantize to the 1/qp grid, entropy-pack
+    # [WEIGHTS] quantize to the 1/qp grid, entropy-pack; the encoder
+    # reconstructs from its own unpacked weight pack, as the decoder does
     qparams = W.quantize_residuals(params, codec_cfg.qp)
     net_weight_pack = W.pack_weights(qparams, codec_cfg.qp)
+    decoder = decoder_from_tree(spec, W.unpack_weights(net_weight_pack), device, recon_dtype)
 
-    # [LATENTS] integer latents + per-channel Gaussian range coding
+    # [LATENTS] integer latents, range coded under the entropy mode's tables
     set_numerics()
     net = params_from_numpy(M.init_params(spec), qparams).to(device)
     with torch.no_grad():
@@ -193,10 +213,18 @@ def encode(
         if n_out:
             warnings.warn(f"{n_out} latent(s) outside the codable range [{lo}, {hi}] were clamped")
             lat_int = np.clip(lat_int, lo, hi)
-        latent_pack = RC.encode_latents(
-            lat_int, code["sigma"].detach().cpu().numpy(), code["mu"].detach().cpu().numpy()
-        )
-        latent_extra_bits = 2 * latent_pack["sigma"].size * 32
+        if spec.entropy_mode in TABLE_MODES:
+            # the tables come from the checkpoint's own f32 leaves, the
+            # arrays the pack carries, never from a device copy
+            ep = {k: np.asarray(v, np.float32) for k, v in qparams["entropy"].items()}
+            cum = _model_latent_tables(spec.entropy_mode, ep, spec.ch)
+            latent_pack = {"mode": spec.entropy_mode, "params": ep, **RC.encode_latents_tables(lat_int, cum)}
+            latent_extra_bits = 32 * sum(v.size for v in ep.values())
+        else:
+            latent_pack = RC.encode_latents(
+                lat_int, code["sigma"].detach().cpu().numpy(), code["mu"].detach().cpu().numpy()
+            )
+            latent_extra_bits = 2 * latent_pack["sigma"].size * 32
 
     # [ORIGINS] trimmed octree occupancy bits
     origins_payload = encode_origins(origins, codec_cfg.depth, codec_cfg.level)
@@ -221,6 +249,8 @@ def encode(
             "depth": int(codec_cfg.depth),
             "level": int(codec_cfg.level),
             "n_points_src": int(n_points_src),
+            # absent = f32, so packs predating the bf16 option decode unchanged
+            **({"recon_dtype": "bf16"} if recon_dtype == "bf16" else {}),
         },
         "net_weight_pack": net_weight_pack,
         "origins": origins_payload,
@@ -229,7 +259,6 @@ def encode(
 
     # encoder-side reconstruction from the exact decode inputs: its own
     # unpacked weight pack and the coded integer latents
-    decoder = decoder_from_tree(spec, W.unpack_weights(net_weight_pack), device)
     points = reconstruct_points(decoder, lat_int.astype(np.float32), origins, codec_cfg.thh_encode)
 
     coded_w, as_is_w = W.weight_pack_bits(net_weight_pack)
@@ -253,8 +282,8 @@ def encode(
         "latent_stream_bytes": len(latent_pack["stream"]),
         "weight_stream_bytes": len(net_weight_pack["bit_stream"]),
     }
-    if spec.entropy_mode in M.CTX_MODES:
-        stats["ctx_payload_bits"] = int(latent_extra_bits)
+    stats["ctx_payload_bits" if spec.entropy_mode in M.CTX_MODES else "latent_table_bits"] = int(
+        latent_extra_bits)
     return EncodeResult(pack=pack, points=points, stats=stats)
 
 
@@ -270,8 +299,7 @@ def decode(pack: dict, device) -> Tuple[np.ndarray, dict]:
         ctx_hidden=int(mc.get("ctx_hidden", M.CTX_HIDDEN)), ctx_tail=int(mc.get("ctx_tail", 0)),
     ))
     recon_dtype = str(pack["codec"].get("recon_dtype", "f32"))
-    _check_recon_dtype(recon_dtype)
-    decoder = decoder_from_tree(spec, W.unpack_weights(pack["net_weight_pack"]), device)
+    decoder = decoder_from_tree(spec, W.unpack_weights(pack["net_weight_pack"]), device, recon_dtype)
     latents = decode_latent_pack(spec, pack["latent_pack"])
     origins = decode_origins(
         pack["origins"], int(pack["codec"]["depth"]), int(pack["codec"]["level"])
@@ -289,12 +317,16 @@ def decode(pack: dict, device) -> Tuple[np.ndarray, dict]:
 
 def decode_latent_pack(spec: M.ModelSpec, latent_pack: dict) -> np.ndarray:
     """The coded integer latents (N, 2, 2, 2, ch) as float32."""
-    if latent_pack.get("mode") in M.CTX_MODES:
+    mode = latent_pack.get("mode")
+    shape = tuple(latent_pack["shape"])
+    if mode in M.CTX_MODES:
         ctx_ints = CTX.ctx_ints_from_payload(spec, latent_pack["ctx"])
         return CTX.decode_latents_ctx(
-            latent_pack["stream"], tuple(latent_pack["shape"]), ctx_ints,
-            channel_ar=latent_pack["mode"] == "ctx_ar",
+            latent_pack["stream"], shape, ctx_ints, channel_ar=mode == "ctx_ar"
         ).astype(np.float32)
+    if mode in TABLE_MODES:
+        cum = _model_latent_tables(mode, latent_pack["params"], shape[-1])
+        return RC.decode_latents_tables(latent_pack["stream"], shape, cum)
     return RC.decode_latents(latent_pack)
 
 

@@ -17,12 +17,23 @@ are training-only. Noise for the q=1 phase and for the train-mode
 bottleneck is an argument; nothing here draws random numbers.
 :func:`net_apply` is the training forward.
 
-Entropy modes: ``channel`` and the ctx family. ``ctx`` predicts each latent
-position's (mu, sigma) from the causally earlier positions of its block
-with two masked 3^3 convs; ``ctx_ar`` also lets channel c see the same
-position's channels < c, and may split off ``ctx_tail`` payload-cheap tail
-units that ctx2 reads only through the gated center tap. The predictor is
-coding-path numerics and stays f32 whatever the compute dtype.
+Entropy modes: ``channel`` (one Gaussian ``(sigma, mu)`` per latent
+channel), ``spatio`` (one per latent position and channel, shape (2, 2, 2,
+ch)), ``gmm`` (a per-channel 2-component Gaussian mixture), ``factorized``
+(a per-channel monotone logit-CDF MLP), and the ctx family. ``ctx``
+predicts each latent position's (mu, sigma) from the causally earlier
+positions of its block with two masked 3^3 convs; ``ctx_ar`` also lets
+channel c see the same position's channels < c, and may split off
+``ctx_tail`` payload-cheap tail units that ctx2 reads only through the
+gated center tap. The entropy model is coding-path numerics and stays f32
+whatever the compute dtype.
+
+A decoder cast to bfloat16 (``CompDecoder.to(torch.bfloat16)``: the
+residuals, the seeded inits and the IGDN params) runs the whole decode
+chain in bf16 — effective kernel, STE, convs with the bias added after
+the rounded conv result, IGDN and sigmoid — which is the JAX package's
+``recon_dtype="bf16"`` program; :func:`reconstruct` upcasts its output to
+f32 exactly.
 """
 
 from __future__ import annotations
@@ -73,9 +84,7 @@ CTX_SIGMA_FLOOR = 1e-6
 # in fixed point (floor division by 16)
 CTX_LRELU_SLOPE = 1.0 / 16.0
 
-# entropy modes of the JAX package that this port does not run yet, and the
-# ROADMAP item that ports each
-NOT_PORTED_MODES = {"spatio": "A12", "gmm": "A12", "factorized": "A12"}
+ENTROPY_MODES = ("channel", "spatio", "gmm", "factorized") + CTX_MODES
 
 
 @dataclass(frozen=True)
@@ -113,12 +122,7 @@ def build_model_spec(
 ) -> ModelSpec:
     """Layer specs of the reference architecture, plus the masked predictor
     (ctx1, ctx2) in ctx modes."""
-    if entropy_mode in NOT_PORTED_MODES:
-        raise NotImplementedError(
-            f"entropy_mode {entropy_mode!r} is not ported to nvfpcc_tpu_torch yet "
-            f"(ROADMAP {NOT_PORTED_MODES[entropy_mode]}); 'channel', 'ctx' and 'ctx_ar' run here"
-        )
-    if entropy_mode not in ("channel",) + CTX_MODES:
+    if entropy_mode not in ENTROPY_MODES:
         raise ValueError(f"unknown entropy_mode: {entropy_mode}")
     if ctx_tail and entropy_mode != "ctx_ar":
         raise ValueError(
@@ -212,13 +216,28 @@ def ctx_feature_init(spec: ModelSpec) -> dict:
 
 
 class GaussianParams(nn.Module):
-    """A learned ``(sigma, mu)`` pair: per latent channel for the entropy
-    bottleneck, scalar for the weight-rate model."""
+    """A learned ``(sigma, mu)`` pair of the given shape: per latent channel
+    (channel mode) or per latent position and channel (spatio) for the
+    entropy bottleneck, scalar for the weight-rate model."""
 
-    def __init__(self, n: int):
+    def __init__(self, shape):
         super().__init__()
-        self.sigma = nn.Parameter(torch.ones((n,), dtype=torch.float32))
-        self.mu = nn.Parameter(torch.zeros((n,), dtype=torch.float32))
+        self.sigma = nn.Parameter(torch.ones(shape, dtype=torch.float32))
+        self.mu = nn.Parameter(torch.zeros(shape, dtype=torch.float32))
+
+
+class EntropyLeaves(nn.Module):
+    """The gmm or factorized entropy model: one parameter per leaf of its
+    init dict (``ops.rate.gmm2_init`` / ``factorized_init``), under the JAX
+    leaf names."""
+
+    def __init__(self, init: dict):
+        super().__init__()
+        for name, value in init.items():
+            self.register_parameter(name, nn.Parameter(value.clone()))
+
+    def leaves(self) -> dict:
+        return dict(self.named_parameters())
 
 
 class LatentGen(nn.Module):
@@ -250,7 +269,7 @@ class CompDecoder(nn.Module):
         self.conv1_cls = IConv3d(s["conv1_cls"])
         self.conv0_cls = IConv3d(s["conv0_cls"])
         self.igdn = GDN(spec.channels[0], inverse=True)
-        self.wrate = GaussianParams(1)
+        self.wrate = GaussianParams((1,))
 
     def forward(
         self,
@@ -322,6 +341,17 @@ class CtxPredictor(nn.Module):
         return out[..., : self.ch], torch.abs(out[..., self.ch:]) + CTX_SIGMA_FLOOR
 
 
+def _entropy_model(spec: ModelSpec) -> nn.Module:
+    mode = spec.entropy_mode
+    if mode in CTX_MODES:
+        return CtxPredictor(spec)
+    if mode == "gmm":
+        return EntropyLeaves(rate.gmm2_init(spec.ch))
+    if mode == "factorized":
+        return EntropyLeaves(rate.factorized_init(spec.ch))
+    return GaussianParams((spec.ch,) if mode == "channel" else spec.latent_shape)
+
+
 class Net(nn.Module):
     """Latent generator + entropy bottleneck + decoder: the whole params tree."""
 
@@ -329,13 +359,14 @@ class Net(nn.Module):
         super().__init__()
         self.spec = spec
         self.latent_gen = LatentGen(spec)
-        self.entropy = CtxPredictor(spec) if spec.entropy_mode in CTX_MODES else GaussianParams(spec.ch)
+        self.entropy = _entropy_model(spec)
         self.decoder = CompDecoder(spec)
 
 
 def init_params(spec: ModelSpec, device=None) -> Net:
     """Zero residuals (the ctx predictor's too, as the reference), entropy
-    sigma 1 / mu 0 in channel mode, seeded inits as buffers."""
+    sigma 1 / mu 0 in channel and spatio modes, the deterministic gmm and
+    factorized inits, seeded inits as buffers."""
     return Net(spec).to(device)
 
 
@@ -348,11 +379,11 @@ def entropy_apply(
     net: Net, x: torch.Tensor, mode: str, noise: Optional[torch.Tensor] = None, q: int = 2,
     pred_noise: Optional[Dict[str, torch.Tensor]] = None,
 ):
-    """Latent bottleneck: STE round + Gaussian rate. Returns ``(x_rounded,
-    bits)`` with ``bits`` shaped like ``x``.
+    """Latent bottleneck: STE round + the entropy mode's rate. Returns
+    ``(x_rounded, bits)`` with ``bits`` shaped like ``x``.
 
-    Channel mode: ``mode="train"`` forms the rate on ``x + noise`` (``noise``
-    ~ U(-0.5, 0.5), passed in) at either q. ctx modes follow the kernel
+    channel, spatio, gmm and factorized: ``mode="train"`` forms the rate on
+    ``x + noise`` (``noise`` ~ U(-0.5, 0.5), passed in) at either q. ctx modes follow the kernel
     phase: at train q=1 the rate is formed on ``x + noise`` and the
     predictor's kernels take their q=1 noise (``pred_noise``); otherwise
     (q=2, or eval) it is formed on ``x_rounded`` and no noise is used."""
@@ -373,7 +404,13 @@ def entropy_apply(
         x_form = x + noise
     else:
         x_form = x_rounded
-    bits = rate.gaussian_bits(x_form, torch.abs(net.entropy.sigma), net.entropy.mu, step=1.0)
+    mode = net.spec.entropy_mode
+    if mode == "gmm":
+        bits = rate.gmm2_bits(x_form, net.entropy.leaves(), step=1.0)
+    elif mode == "factorized":
+        bits = rate.factorized_bits(x_form, net.entropy.leaves(), step=1.0)
+    else:
+        bits = rate.gaussian_bits(x_form, torch.abs(net.entropy.sigma), net.entropy.mu, step=1.0)
     return x_rounded, bits
 
 
@@ -419,19 +456,23 @@ def ctx_kernel_bits(net: Net) -> torch.Tensor:
 
 
 def reconstruct(decoder: CompDecoder, latent: torch.Tensor) -> torch.Tensor:
-    """Decode-only forward at q=2 (works on the decode-minimal params)."""
-    out, _, _ = decoder(latent, q=2, aux=False)
-    return out
+    """Decode-only forward at q=2 (works on the decode-minimal params) in
+    the decoder's dtype, returned as f32: a bf16 decoder's occupancy is
+    upcast exactly, before any caller compares it with a threshold (a bf16
+    tensor compared with a Python float rounds the threshold to bf16)."""
+    out, _, _ = decoder(latent.to(decoder.up0.kernel.dtype), q=2, aux=False)
+    return out.float()
 
 
 def get_latent_code(net: Net, emb: torch.Tensor) -> dict:
-    """Quantized latents + the channel (sigma, mu) for the range coder. In
+    """Quantized latents + the (sigma, mu) of channel and spatio modes for
+    the range coder (the gmm and factorized params travel as they are). In
     ctx modes the host coder derives each symbol's table itself from the
     rounded latents and the transmitted ctx params, so only the latents
     export."""
     rounded, bits = entropy_apply(net, net.latent_gen(emb), mode="eval")
     out = {"quantized_latent": rounded, "latent_bits": bits.sum()}
-    if net.spec.entropy_mode == "channel":
+    if net.spec.entropy_mode in ("channel", "spatio"):
         out["sigma"] = torch.abs(net.entropy.sigma)
         out["mu"] = net.entropy.mu
     return out
@@ -440,8 +481,9 @@ def get_latent_code(net: Net, emb: torch.Tensor) -> dict:
 def get_network_bits(net: Net) -> float:
     """Signaled network size estimate in bits: kernel-residual rate plus the
     reference's fixed fp32 accounting of the as-is aux params and the
-    entropy model (per-channel (sigma, mu); in ctx modes the masked ctx
-    kernels' residual rate plus their fp32 biases)."""
+    entropy model: (sigma, mu) per channel or per position, every gmm or
+    factorized leaf at 32 bits, and in ctx modes the masked ctx kernels'
+    residual rate plus their fp32 biases."""
     dec = net.decoder
     wrate = {"sigma": dec.wrate.sigma, "mu": dec.wrate.mu}
     net_bits = sum(
@@ -453,8 +495,10 @@ def get_network_bits(net: Net) -> float:
     if net.spec.entropy_mode in CTX_MODES:
         entropy_bits = float(ctx_kernel_bits(net).sum())
         entropy_bits += (net.spec.ctx_hidden + 2 * net.spec.ch) * 32
+    elif net.spec.entropy_mode in ("gmm", "factorized"):
+        entropy_bits = sum(p.numel() for p in net.entropy.parameters()) * 32
     else:
-        entropy_bits = net.spec.ch * 2 * 32
+        entropy_bits = net.entropy.sigma.numel() * 2 * 32
     return net_bits + aux_bits + entropy_bits
 
 

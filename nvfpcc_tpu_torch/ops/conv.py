@@ -24,9 +24,12 @@ applied after the seeded init is added back, as the JAX package does.
 Mixed-precision training (``compute_dtype="bf16"``): the master residual,
 the q-phase quantization and the seeded-init add stay f32
 (``effective_kernel``); then activation, effective kernel and bias are cast
-to bf16 and only the conv arithmetic runs there. The bias is added after
-the conv, in bf16, as the JAX package does (conv result rounded to bf16,
-then ``+ b``). Without a compute dtype nothing is cast.
+to bf16 and only the conv arithmetic runs there. Without a compute dtype
+nothing is cast, and the conv runs in the operands' dtype: f32, or bf16
+for a decoder cast to bf16 (the bf16 reconstruction, where the residual,
+the STE and the init add are bf16 too). Whenever the conv runs in bf16 the
+bias is added after it, in bf16, as XLA does (conv result rounded to bf16,
+then ``+ b``); an f32 conv takes the bias fused.
 """
 
 from __future__ import annotations
@@ -158,27 +161,33 @@ def as_compute_dtype(compute_dtype):
     raise ValueError(f"unsupported compute_dtype: {compute_dtype!r}")
 
 
+def _run_conv(conv, x, w, b, compute_dtype):
+    """``conv(x, w, bias)`` on NCDHW views in the compute dtype (default: the
+    operands' own); f32 fuses the bias, bf16 adds it after the rounded
+    conv result. Returns NDHWC."""
+    cd = as_compute_dtype(compute_dtype) or x.dtype
+    x, w = x.to(cd), w.to(cd)
+    if cd == torch.float32:
+        return conv(x, w, b).permute(0, 2, 3, 4, 1)
+    return conv(x, w, None).permute(0, 2, 3, 4, 1) + b.to(cd)
+
+
 def conv3d_ndhwc(x, kernel, b, stride: int, padding: int, compute_dtype=None) -> torch.Tensor:
     """Direct conv: NDHWC activation, DHWIO kernel."""
-    cd = as_compute_dtype(compute_dtype)
-    x, w = x.permute(0, 4, 1, 2, 3), kernel.permute(4, 3, 0, 1, 2)
-    if cd is None:
-        return F.conv3d(x, w, b, stride, padding).permute(0, 2, 3, 4, 1)
-    y = F.conv3d(x.to(cd), w.to(cd), None, stride, padding)
-    return y.permute(0, 2, 3, 4, 1) + b.to(cd)
+    return _run_conv(
+        lambda x, w, b: F.conv3d(x, w, b, stride, padding),
+        x.permute(0, 4, 1, 2, 3), kernel.permute(4, 3, 0, 1, 2), b, compute_dtype,
+    )
 
 
 def conv_transpose3d_ndhwc(x, kernel, b, stride: int, padding: int, output_padding: int,
                            compute_dtype=None):
     """Transposed conv (torch semantics): NDHWC activation, DHWIO kernel with
     I = the transposed op's input channels; no flip."""
-    cd = as_compute_dtype(compute_dtype)
-    x, w = x.permute(0, 4, 1, 2, 3), kernel.permute(3, 4, 0, 1, 2)
-    if cd is None:
-        y = F.conv_transpose3d(x, w, b, stride, padding, output_padding)
-        return y.permute(0, 2, 3, 4, 1)
-    y = F.conv_transpose3d(x.to(cd), w.to(cd), None, stride, padding, output_padding)
-    return y.permute(0, 2, 3, 4, 1) + b.to(cd)
+    return _run_conv(
+        lambda x, w, b: F.conv_transpose3d(x, w, b, stride, padding, output_padding),
+        x.permute(0, 4, 1, 2, 3), kernel.permute(3, 4, 0, 1, 2), b, compute_dtype,
+    )
 
 
 class QConv3d(nn.Module):

@@ -2,7 +2,8 @@
 -> eval path through ``nvfpcc_tpu_torch.cli.main`` and ``serve.handle``
 from a JAX-written checkpoint, with D1 equal to the JAX ``d1_psnr``; the
 whole README workflow (grids -> train -> encode -> decode -> weights) on a
-checkpoint the port trained itself; plus the refusals of what is not ported.
+checkpoint the port trained itself; `eval --d2`; plus the refusal of what is
+not ported.
 (The grids artifact is held against the JAX package in test_torch_grids.py.)"""
 
 import argparse
@@ -105,14 +106,25 @@ def test_parser_is_flag_compatible_with_the_jax_cli():
 
 @pytest.mark.parametrize("args,item", [
     pytest.param(["train", "c.ply", "--epochs", "3", "--mesh"], "A16", id="train"),
-    # this case held `weights` on a ctx checkpoint, which runs since the ctx
-    # family was ported; it now holds the training refusal of the A12 modes
-    pytest.param(["train", "c.ply", "--entropy_mode", "gmm"], "A12", id="weights"),
+    # this case held `weights` on a ctx checkpoint, then `train --entropy_mode
+    # gmm` (A12); both run now, and it holds `eval --d2` (A10), which runs
+    pytest.param(["eval", "a.ply", "b.ply", "--d2", "--depth", "6", "--platform", "cpu"], None, id="weights"),
 ])
-def test_unported_commands_exit_clearly(args, item):
-    """What `train` still refuses, each with its ROADMAP item, before it
-    touches the cloud: block-DP (`--mesh`) and the spatio/gmm/factorized
-    entropy modes."""
+def test_unported_commands_exit_clearly(args, item, tmp_path, capsys):
+    """What the CLI still refuses, with its ROADMAP item, before it touches
+    the cloud: block-DP (`train --mesh`). `eval --d2` runs, through the CLI
+    and through the server (tests/test_torch_d2.py holds its numbers)."""
+    if item is None:
+        rng = np.random.default_rng(0)
+        a = np.unique(rng.integers(20, 28, (60, 3)), axis=0)
+        for name, pts in (("a.ply", a), ("b.ply", a + (0, 0, 1))):
+            write_ply_points(str(tmp_path / name), pts)
+        args = [str(tmp_path / x) if x.endswith(".ply") else x for x in args]
+        assert main(args) == 0
+        assert "[eval] D2 PSNR" in capsys.readouterr().out
+        assert handle({"cmd": args[0], "args": args[1:]}) == {"ok": True, "status": 0}
+        assert "[eval] D2 PSNR" in capsys.readouterr().err
+        return
     with pytest.raises(SystemExit, match=f"not ported.*ROADMAP {item}"):
         main(args)
     r = handle({"cmd": args[0], "args": args[1:]})

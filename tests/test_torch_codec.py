@@ -11,7 +11,6 @@ import pytest
 
 from nvfpcc_tpu import codec as JC
 from nvfpcc_tpu.codec import weights as JW
-from nvfpcc_tpu.coder import range_coder as RC
 from nvfpcc_tpu.config import CodecConfig, ModelConfig
 from nvfpcc_tpu.models import decoder as JM
 from nvfpcc_tpu.octree.partition import leaf_origins
@@ -21,6 +20,7 @@ from nvfpcc_tpu_torch.codec import weights as TW
 from nvfpcc_tpu_torch.config import ModelConfig as CodecModelConfig
 from nvfpcc_tpu_torch.models import decoder as TM
 from nvfpcc_tpu_torch.utils import checkpoint as TCK
+from torch_train_helpers import assert_only_band_differs
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "packs")
 THH = 0.55
@@ -57,29 +57,6 @@ def setup():
     j_res = JC.encode(tree, emb, origins, MCFG, CCFG, len(pts))
     assert len(t_res.points) > 0
     return {"pts": pts, "origins": origins, "tree": tree, "emb": emb, "t": t_res, "j": j_res}
-
-
-def _assert_only_band_differs(a, b, pack):
-    """Points in one set and not the other lie in the thh band of the
-    port's occupancy field for this pack."""
-    sa, sb = set(map(tuple, a)), set(map(tuple, b))
-    diff = sa ^ sb
-    if not diff:
-        return
-    spec = TM.build_model_spec(int(pack["model"]["ch"]), tuple(int(c) for c in pack["model"]["chanstr"].split(",")))
-    occ = TC.reconstruct_all(
-        TC.decoder_from_tree(spec, TW.unpack_weights(pack["net_weight_pack"]), "cpu"),
-        RC.decode_latents(pack["latent_pack"]),
-    )
-    origins = TC.decode_origins(pack["origins"], int(pack["codec"]["depth"]), int(pack["codec"]["level"]))
-    block_of = {tuple(o): i for i, o in enumerate(origins)}
-    bsz = occ.shape[1]
-    thh = float(pack["codec"]["thh"])
-    for p in diff:
-        p = np.asarray(p)
-        o = tuple((p // bsz) * bsz)
-        v = p - np.asarray(o)
-        assert abs(occ[block_of[o], v[0], v[1], v[2]] - thh) < BAND, p
 
 
 def test_torch_encode_equals_torch_decode(setup, tmp_path):
@@ -126,12 +103,12 @@ def test_packs_carry_the_same_payloads(setup):
 
 def test_torch_pack_decodes_in_jax(setup):
     jpoints, _ = JC.decode(setup["t"].pack)
-    _assert_only_band_differs(setup["t"].points, jpoints, setup["t"].pack)
+    assert_only_band_differs(setup["t"].points, jpoints, setup["t"].pack, BAND)
 
 
 def test_jax_pack_decodes_in_torch(setup):
     tpoints, _ = TC.decode(setup["j"].pack, "cpu")
-    _assert_only_band_differs(tpoints, setup["j"].points, setup["j"].pack)
+    assert_only_band_differs(tpoints, setup["j"].points, setup["j"].pack, BAND)
 
 
 def test_pack_v1_fixture_decodes_in_torch():
@@ -149,7 +126,7 @@ def test_pack_v1_fixture_decodes_in_torch():
     )
     np.testing.assert_array_equal(points, live)
     jpoints, _ = JC.decode(pack)
-    _assert_only_band_differs(points, jpoints, pack)
+    assert_only_band_differs(points, jpoints, pack, BAND)
 
 
 def test_jax_checkpoint_encodes_in_torch(setup, tmp_path):
@@ -171,8 +148,10 @@ def test_refusals(setup, tmp_path):
     pack = dict(setup["t"].pack)
     with pytest.raises(ValueError, match="unsupported pack format"):
         TC.decode({**pack, "format_version": 99}, "cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        TC.decode({**pack, "codec": {**pack["codec"], "recon_dtype": "bf16"}}, "cpu")
+    # bf16 packs decode since the bf16 reconstruction was ported; a dtype
+    # neither package knows is refused, as the JAX package refuses it
+    with pytest.raises(ValueError, match="unsupported recon_dtype"):
+        TC.decode({**pack, "codec": {**pack["codec"], "recon_dtype": "fp16"}}, "cpu")
     import pickle
 
     bad = str(tmp_path / "bad.pk")
@@ -184,16 +163,18 @@ def test_refusals(setup, tmp_path):
 
 @pytest.mark.parametrize("version,item", [(2, "A12"), (3, "A13")])
 def test_unported_mode_fixtures_refuse_clearly(version, item):
-    """pack_v2 (spatio) waits for its entropy mode (A12). pack_v3 (ctx) came
-    with A13 (the name predates it) and decodes: its latents equal the
-    golden ints exactly (tests/test_torch_ctx.py checks its points)."""
+    """The name predates the port of both modes: pack_v2 (spatio, Huffman
+    weights; A12) and pack_v3 (ctx; A13) decode. Their latents equal the
+    golden ints exactly; pack_v2's points equal the JAX decode within the
+    thh band (tests/test_torch_ctx.py checks pack_v3's points)."""
     pack = TC.load_pack(os.path.join(FIXDIR, f"pack_v{version}.pk"))
-    if item == "A12":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            TC.decode(pack, "cpu")
-        return
     golden = np.load(os.path.join(FIXDIR, f"golden_v{version}.npz"))
-    spec = TC.model_spec(CodecModelConfig(ch=2, chanstr="4,8,4,4", entropy_mode="ctx"))
+    mode = "spatio" if item == "A12" else "ctx"
+    assert pack["model"]["entropy_mode"] == mode
+    spec = TC.model_spec(CodecModelConfig(ch=2, chanstr="4,8,4,4", entropy_mode=mode))
     np.testing.assert_array_equal(TC.decode_latent_pack(spec, pack["latent_pack"]), golden["latents"])
     points, info = TC.decode(pack, "cpu")
     assert info["n_blocks"] == len(golden["origins"]) and len(points) > 0
+    if mode == "spatio":
+        assert pack["latent_pack"]["sigma"].shape == (2, 2, 2, 2)
+        assert_only_band_differs(points, JC.decode(pack)[0], pack, BAND)

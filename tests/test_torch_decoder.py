@@ -141,13 +141,21 @@ def test_train_mode_needs_noise(small):
 
 @pytest.mark.parametrize("mode", ["spatio", "gmm", "factorized", "ctx", "ctx_ar"])
 def test_other_entropy_modes_not_ported(mode):
-    """spatio, gmm and factorized wait for ROADMAP A12. ctx and ctx_ar (the
-    name predates their port) build their spec: the channel layers' seeded
-    inits unchanged, plus the masked predictor (tests/test_torch_ctx.py
-    holds it against the JAX package)."""
+    """The name predates the port of these modes: every one now builds its
+    spec. spatio, gmm and factorized keep the channel layers and carry an
+    entropy subtree of the JAX package's leaf names and shapes
+    (tests/test_torch_entropy_modes.py holds their values and rates against
+    it); ctx and ctx_ar add the masked predictor (tests/test_torch_ctx.py)."""
     if mode not in TM.CTX_MODES:
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            TM.build_model_spec(2, (4, 8, 4, 4), entropy_mode=mode)
+        spec = TM.build_model_spec(2, (4, 8, 4, 4), entropy_mode=mode)
+        assert set(spec.specs) == set(TM.build_model_spec(2, (4, 8, 4, 4)).specs)
+        want = JM.init_params(JM.build_model_spec(2, (4, 8, 4, 4), entropy_mode=mode))["entropy"]
+        got = {n: tuple(p.shape) for n, p in TM.init_params(spec).entropy.named_parameters()}
+        assert got == {n: tuple(np.shape(v)) for n, v in want.items()}
+        if mode == "factorized":
+            assert got["matrix_0"] == (2, 1, 3) and got["matrix_3"] == (2, 3, 1) and len(got) == 11
+        else:
+            assert got["sigma"] == ((2, 2, 2, 2) if mode == "spatio" else (2, 2))
         return
     spec = TM.build_model_spec(2, (4, 8, 4, 4), entropy_mode=mode)
     plain = TM.build_model_spec(2, (4, 8, 4, 4))

@@ -2,8 +2,8 @@
 byte-equal (or value-equal) to their originals on seeded inputs: the range
 coder, the context-model coder and the Huffman coder, the octree
 partitioner (numpy and native paths),
-PLY I/O, the seed stream, the configs, the trainer's batch plan and the CLI's
-auto gates. A pack or a
+PLY I/O, the seed stream, the configs, the trainer's batch plan, the CLI's
+auto gates and the numpy helpers of the D2 metric. A pack or a
 checkpoint written by either package must read the same in the other."""
 
 import argparse
@@ -18,6 +18,7 @@ from nvfpcc_tpu.coder import ctx_coder as jax_ctx
 from nvfpcc_tpu.coder import huffman as jax_huffman
 from nvfpcc_tpu.coder import range_coder as jax_rc
 from nvfpcc_tpu.io import ply as jax_ply
+from nvfpcc_tpu.metrics import d2 as jax_d2
 from nvfpcc_tpu.octree import native as jax_native
 from nvfpcc_tpu.octree import partition as jax_part
 from nvfpcc_tpu.train import loop as jax_loop
@@ -28,6 +29,7 @@ from nvfpcc_tpu_torch.coder import ctx_coder as port_ctx
 from nvfpcc_tpu_torch.coder import huffman as port_huffman
 from nvfpcc_tpu_torch.coder import range_coder as port_rc
 from nvfpcc_tpu_torch.io import ply as port_ply
+from nvfpcc_tpu_torch.metrics import d2 as port_d2
 from nvfpcc_tpu_torch.octree import native as port_native
 from nvfpcc_tpu_torch.octree import partition as port_part
 from nvfpcc_tpu_torch.train import loop as port_loop
@@ -283,3 +285,26 @@ def test_cli_model_flags_equal():
         return [(a.dest, a.default, a.choices, a.type, a.help) for a in p._actions]
 
     assert flags(port_cli._add_model) == flags(jax_cli._add_model)
+
+
+# ------------------------------------------------------------------------- D2
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_d2_numpy_helpers_equal(seed):
+    """Key packing, the windowed-PCA normals (bit for bit) and the integer
+    sphere offsets; the NN vectors recovered from one EDT distance field."""
+    pts = _cloud(seed, n=1500, depth=6)
+    np.testing.assert_array_equal(port_d2._keys(pts), jax_d2._keys(pts))
+    for radius in (1, 2):
+        pn, pv = port_d2.estimate_normals(pts, radius)
+        jn, jv = jax_d2.estimate_normals(pts, radius)
+        np.testing.assert_array_equal(pn, jn)
+        np.testing.assert_array_equal(pv, jv)
+    for v in (0, 1, 2, 3, 9, 50, 125, 3969):
+        assert port_d2._sphere_offsets(v, 63) == jax_d2._sphere_offsets(v, 63)
+    other = _cloud(seed + 7, n=1500, depth=6)
+    ve, vj = port_d2._vectors_at(pts, other, jax_d2._nn_sq_dists(pts, other, 20, "cpu"), 20)
+    je, jj = jax_d2.nn_vectors(pts, other, 20, "cpu")
+    np.testing.assert_array_equal(ve, je)
+    np.testing.assert_array_equal(vj, jj)

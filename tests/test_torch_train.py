@@ -288,7 +288,22 @@ def test_profile_dir_gets_a_trace_of_epochs_3_to_5(toy, tmp_path, epochs):
         assert "traceEvents" in json.load(f)
 
 
-def test_other_modes_keep_raising(toy):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        TT.train(toy["gt"], toy["dist"], ModelConfig(ch=H.CH, chanstr=H.CHANSTR, entropy_mode="gmm"),
+def test_other_modes_keep_raising(toy, tmp_path):
+    """The name predates the port of the gmm, spatio and factorized modes:
+    a tiny gmm run now trains (finite losses, a checkpoint whose entropy
+    subtree and metadata are gmm's, which `weights` packs), and only an
+    unknown mode raises."""
+    logs = []
+    cfg = TrainConfig(**{**KW, "epochs": 2, "phase_change": 1, "eval_every": 1})
+    spec, state = TT.train(toy["gt"], toy["dist"], ModelConfig(ch=H.CH, chanstr=H.CHANSTR, entropy_mode="gmm"),
+                           cfg, "cpu", checkpoint_dir=str(tmp_path), log=logs.append)
+    assert spec.entropy_mode == "gmm" and sum(" TRAIN " in x for x in logs) == 2
+    params, _, meta = TCK.load_checkpoint_meta(str(tmp_path / "0001.npz"))
+    assert meta["entropy_mode"] == "gmm" and set(params["entropy"]) == {"sigma", "mu", "p_logit"}
+    assert np.abs(params["entropy"]["p_logit"]).max() > 0  # the mixture weights trained
+    from nvfpcc_tpu_torch.cli import main
+
+    assert main(["weights", str(tmp_path / "0001.npz"), "--out", str(tmp_path / "q.npz")]) == 0
+    with pytest.raises(ValueError, match="unknown entropy_mode"):
+        TT.train(toy["gt"], toy["dist"], ModelConfig(ch=H.CH, chanstr=H.CHANSTR, entropy_mode="banana"),
                  TrainConfig(**KW), "cpu")

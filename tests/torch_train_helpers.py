@@ -1,8 +1,10 @@
-"""Shared by the port's training tests (tests/test_torch_losses.py,
-tests/test_torch_train.py, tests/test_torch_ctx_train.py): the toy training
-set, the JAX package's noise replayed for the port, and a JAX training
-state carried into the port (and both compared as numpy). The model is the
-channel-mode toy unless a JAX spec is given."""
+"""Shared by the port's training and codec tests (tests/test_torch_losses.py,
+tests/test_torch_train.py, tests/test_torch_ctx_train.py,
+tests/test_torch_entropy_modes.py, tests/test_torch_recon_bf16.py): the toy
+training set, the JAX package's noise replayed for the port, a JAX training
+state carried into the port (and both compared as numpy), and the check
+that two packages' point sets differ only near the threshold. The model is
+the channel-mode toy unless a JAX spec is given."""
 
 import jax
 import jax.numpy as jnp
@@ -176,3 +178,32 @@ def jax_fresh_state(jcfg, n_blocks, tree=None, emb=None, spec=None):
     emb = JM.init_embeddings(n_blocks, CH) if emb is None else jnp.asarray(emb)
     net_opt, emb_opt = JT.make_optimizers(jcfg, -(-n_blocks // jcfg.batch_size))
     return spec, params, net_opt.init(params), emb, emb_opt.init(emb), net_opt, emb_opt
+
+
+def assert_only_band_differs(a, b, pack, band):
+    """Points in one set and not the other lie within ``band`` of the pack's
+    ``thh`` in the port's occupancy field for this pack (any entropy mode,
+    the pack's ``recon_dtype``)."""
+    from nvfpcc_tpu_torch import codec as TC
+    from nvfpcc_tpu_torch.codec import weights as TW
+    from nvfpcc_tpu_torch.config import ModelConfig
+
+    diff = set(map(tuple, a)) ^ set(map(tuple, b))
+    if not diff:
+        return
+    mc = pack["model"]
+    spec = TC.model_spec(ModelConfig(ch=int(mc["ch"]), chanstr=mc["chanstr"], seed_tag=mc["seed_tag"],
+                                     entropy_mode=mc.get("entropy_mode", "channel")))
+    occ = TC.reconstruct_all(
+        TC.decoder_from_tree(spec, TW.unpack_weights(pack["net_weight_pack"]), "cpu",
+                             pack["codec"].get("recon_dtype", "f32")),
+        TC.decode_latent_pack(spec, pack["latent_pack"]),
+    )
+    origins = TC.decode_origins(pack["origins"], int(pack["codec"]["depth"]), int(pack["codec"]["level"]))
+    block_of = {tuple(o): i for i, o in enumerate(origins)}
+    bsz, thh = occ.shape[1], float(pack["codec"]["thh"])
+    for p in diff:
+        p = np.asarray(p)
+        o = tuple((p // bsz) * bsz)
+        v = p - np.asarray(o)
+        assert abs(occ[block_of[o], v[0], v[1], v[2]] - thh) < band, p
