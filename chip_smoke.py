@@ -43,8 +43,42 @@ pack (median of 5, CUDA events). Then the other latent entropy modes:
 
 plus a decode of the JAX-made spatio pack ``pack_v2.pk`` against its golden
 latents; it prints each mode's epoch seconds, bpp split and latent table
-bits. Last, ``eval --d2`` on the channel reconstruction: four EDT launches
+bits. Then ``eval --d2`` on the channel reconstruction: four EDT launches
 (two for D1, two for D2) and the host seconds of the normals.
+
+Last, block-data-parallel training (``train --mesh``) at the flagship width
+on the same grids, in f32 for 2 epochs (q=1, then q=2). First the runs
+that are compared, under ``torch.use_deterministic_algorithms`` (cuDNN's
+training algorithms are otherwise free, and two free plain runs part from
+the second epoch on):
+
+    plain train twice -> train --mesh through the CLI alone (world size 1,
+    NCCL) -> two ranks on the one card over gloo through
+    ``parallel.run_group`` (world size 2; NCCL refuses two ranks on one
+    device) -> one net step over all blocks and the embedding update, plain
+    and at world size 2, from the init (q=1) and from the first plain run's
+    snapshot after epoch 0 (q=2, the embeddings' second Adam step); the
+    same plain gradients summed from two half-batch calls in this process
+
+The two plain runs must agree bit for bit at every checkpoint, world size
+1 must equal them bit for bit (every param, the embeddings, the metrics),
+and world size 2's loss, bpp, pacc and nacc of every epoch and step must
+stay within max(10 x the plain runs' spread, the CPU suite's bound 2e-6 +
+2e-4 x |plain value|). After one step from a common state, world size 2's
+net gradient, read off the Adam moments, must lie within max(10 x
+||the plain gradient summed from two half-batch calls - the one-call
+plain gradient||, 2e-4 x ||gradient||) of plain's, parameter by parameter
+(the half-batch sum is computed in this process); its embedding moments
+within a relative L2 distance of 2e-4. World size 2's params and
+embeddings along the 2-epoch run are reported against plain train, not
+held: each of its calls holds half a batch, which changes cuDNN's sums
+(the classifier heads' weight gradients by up to about 1e-3 relative), and
+83 Adam steps an epoch carry such differences past the CPU bound. Then, with
+cuDNN free, the three kinds of run are timed -> train --mesh in bf16 for 3
+epochs -> encode of the world-size-2 checkpoint -> decode in a second
+process -> eval (D1, 2 EDT launches). It prints seconds per epoch of each
+timed run (the two-rank run shares one card: no speedup), the bytes
+all-reduced per net step and the all-reduce's time per step (CUDA events).
 
 Usage, from the root of a checkout on a machine with one CUDA card:
 
@@ -91,6 +125,16 @@ EDT_SPECIAL = [("empty", (64, 72, 80), 55), ("full", (64, 72, 80), 63),
 # show how the time scales with the window
 TIMED_EDT = [((688, 688, 688), 55), ((656, 656, 672), 63)]
 R_SCALING = ((688, 688, 688), 27)
+# block-DP: the f32 runs take MESH_EPOCHS epochs (the first at q=1). World
+# size 2 is held within the larger of MESH_SPREAD_FACTOR x the spread between
+# two plain runs and the CPU suite's bound for block-DP against one process
+# (tests/test_torch_parallel.py). Then the bf16 mesh run's epochs and its
+# phase change.
+MESH_EPOCHS = 2
+MESH_BF16_EPOCHS, MESH_BF16_PHASE_CHANGE = 3, 2
+MESH_METRICS = ("loss", "bpp", "pacc", "nacc")
+MESH_RTOL, MESH_ATOL, MESH_SPREAD_FACTOR = 2e-4, 2e-6, 10.0
+ADAM_B1 = 0.9  # both Adams' (train.loop.make_optimizers)
 # the least time the card could take: the function reads 1 byte (occupancy)
 # and writes 4 (int32) per voxel, over the H100's published 3.35 TB/s. Its
 # operations (a lower-envelope EDT is O(1) integer work per voxel per axis)
@@ -608,11 +652,280 @@ def phase_modes(torch, K, w, n_points: int, n_blocks: int) -> dict:
     return stats
 
 
+def mesh_numbers(out: str) -> dict:
+    """The trainer's closing block-DP line: ranks, backend, all-reduces, the
+    bytes of one and its time per net step on rank 0 (CUDA events)."""
+    m = re.search(r"block-DP over (\d+) ranks \((\w+), (\w+)\): (\d+) gradient all-reduces of (\d+) bytes, "
+                  r"one per net step; ([\d.]+) ms median, ([\d.]+) ms mean", out)
+    if m is None:
+        fail("no block-DP line in the trainer's log")
+    return {"ranks": int(m[1]), "backend": m[2], "device": m[3], "allreduces": int(m[4]),
+            "bytes_per_step": int(m[5]), "allreduce_ms_median": float(m[6]), "allreduce_ms_mean": float(m[7])}
+
+
+def checkpoint_arrays(ck: str, epoch: int) -> dict:
+    """Every param and the embeddings of the checkpoint of ``epoch`` in ``ck``."""
+    from nvfpcc_tpu_torch.utils import checkpoint as C
+    from nvfpcc_tpu_torch.utils.params import flatten_tree
+
+    params, emb, _ = C.load_checkpoint_meta(os.path.join(ck, f"{epoch:04d}.npz"))
+    return {**flatten_tree(params), "emb": emb}
+
+
+def held(arrays: dict) -> dict:
+    """The seven transmitted kernels and the embeddings."""
+    from nvfpcc_tpu_torch.models.decoder import TRANSMITTED_KERNELS
+
+    return {k: arrays[k] for k in [f"decoder/{n}/kernel" for n in TRANSMITTED_KERNELS] + ["emb"]}
+
+
+def share_of_tolerance(got, ref, other_plain) -> float:
+    """The largest of |got - ref| over its element's tolerance: the larger of
+    MESH_SPREAD_FACTOR x |other_plain - ref| (the spread between two plain
+    runs) and the CPU suite's bound MESH_ATOL + MESH_RTOL x |ref|."""
+    ref = np.asarray(ref, np.float64)
+    tol = np.maximum(MESH_SPREAD_FACTOR * np.abs(np.asarray(other_plain, np.float64) - ref),
+                     MESH_ATOL + MESH_RTOL * np.abs(ref))
+    return float((np.abs(np.asarray(got, np.float64) - ref) / tol).max())
+
+
+def state_moments(ck: str, epoch: int) -> dict:
+    """Both Adams' moments (``exp_avg``, ``exp_avg_sq``) in the train-state
+    snapshot of ``epoch`` in ``ck``: after one step from a common state they
+    move with the step's gradient, not through Adam's division by them."""
+    with np.load(os.path.join(ck, f"state_{epoch:04d}.npz")) as z:
+        return {k: z[k] for k in z.files if k.startswith(("opt/exp_avg", "emb_opt/exp_avg"))}
+
+
+def rel_l2(got, ref) -> float:
+    """||got - ref|| / ||ref|| over the whole array."""
+    ref = np.asarray(ref, np.float64)
+    return float(np.linalg.norm(np.asarray(got, np.float64) - ref) / max(float(np.linalg.norm(ref)), 1e-30))
+
+
+def split_spread(torch, job: dict, q: int, snapshot) -> dict:
+    """The first net step of a one-batch run of ``job`` (every block in the
+    batch), from the init or from ``snapshot``: per parameter, ||the
+    gradient summed from two half-batch calls - the one-call gradient|| and
+    ||the one-call gradient||, in this process. cuDNN's sums depend on the
+    batch a call holds, and the classifier heads' weight gradients cancel
+    over the 43M voxels, so the split moves them far more than the order of
+    the blocks does: the spread block-DP is held to."""
+    from nvfpcc_tpu_torch.models import decoder as M
+    from nvfpcc_tpu_torch.train import loop as TT
+    from nvfpcc_tpu_torch.utils import checkpoint as C
+    from nvfpcc_tpu_torch.utils.params import named_params, params_from_numpy
+
+    mcfg, cfg, dev = job["model_cfg"], job["cfg"], torch.device("cuda")
+    spec = M.build_model_spec(mcfg.ch, mcfg.channels, mcfg.seed_tag, mcfg.entropy_mode, mcfg.ctx_detach_pred,
+                              mcfg.ctx_hidden, ctx_tail=mcfg.ctx_tail)
+    net, n = TT.initial_params(spec, mcfg, dev), len(job["gt"])
+    emb = M.init_embeddings(n, mcfg.ch, dev)
+    if snapshot is not None:
+        snap = C.load_train_state(snapshot)
+        net = params_from_numpy(net, snap["params"])
+        emb = torch.as_tensor(snap["emb"], device=dev)
+    gt, dist = TT._prep_dense(job["gt"], job["dist"], dev)
+    noise = TT.NoiseSource(cfg.seed, spec, dev)
+    noise.start_epoch(q - 1, 1)
+    nz = noise.draw((n,) + tuple(emb.shape[1:]), q)
+    named = named_params(net)
+    valid, n_pts = torch.ones(n, device=dev), torch.tensor(float(job["gt"].sum()), device=dev)
+
+    def grads(rows, count_net):
+        z = {**nz, "latent": nz["latent"][rows]} if "latent" in nz else nz
+        loss, _ = TT.rd_loss(net, cfg, emb[rows], gt[rows], dist[rows], valid[rows], float(n_pts), "train", q, z,
+                             cfg.compute_dtype, n_pts_override=n_pts, count_net=count_net)
+        gs = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+        return [torch.zeros_like(p, dtype=torch.float64) if g is None else g.double() for p, g in zip(named.values(), gs)]
+
+    one = grads(slice(0, n), True)
+    two = [a + b for a, b in zip(grads(slice(0, n // 2), True), grads(slice(n // 2, n), False))]
+    return {k: (float((b - a).norm()), float(a.norm())) for k, a, b in zip(named, one, two)}
+
+
+def deterministic_train_on_mesh(mesh, jobs, echo=False):
+    """``train_on_mesh`` under deterministic algorithms (a spawned rank
+    starts a process of its own, without the parent's setting)."""
+    import torch
+
+    from nvfpcc_tpu_torch.train.loop import train_on_mesh
+
+    torch.use_deterministic_algorithms(True)
+    return train_on_mesh(mesh, jobs, echo=echo)
+
+
+def phase_mesh(torch, K, w, n_points: int) -> dict:
+    """Block-DP on the card. Under deterministic algorithms: two plain f32
+    runs, NCCL at world size 1 through the CLI, gloo at world size 2 on the
+    one card through the spawn helper, held against the plain run at every
+    checkpoint. With cuDNN free: the three timed again. Then a bf16 mesh
+    run; encode, decode in a second process and eval of the world-size-2
+    checkpoint."""
+    from nvfpcc_tpu_torch.cli import build_parser, train_job
+    from nvfpcc_tpu_torch.parallel import run_group
+    from nvfpcc_tpu_torch.tools.ctx_recipe import threshold_keeping
+    from nvfpcc_tpu_torch.train.loop import train_on_mesh
+
+    common = [w("sphere.ply"), "--depth", "10", "--level", "5", "--platform", "device"]
+    f32 = ["--epochs", str(MESH_EPOCHS), "--phase_change", "1", "--eval_every", "1", "--compute_dtype", "f32"]
+    with np.load(w("sphere_d10_l5_grids.npz")) as art:
+        grids = {k: art[k] for k in ("origins", "gt", "dist")}
+
+    def plain(name, flags=f32):
+        t = time.time()
+        out = run_cli(["train", *common, *flags, "--checkpoint_dir", w(f"ckpt_{name}"),
+                       "--metrics", w(f"mesh_{name}.jsonl")])
+        return {"train_s": time.time() - t, "epoch_s": epoch_seconds(out)}
+
+    def nccl_w1(name):
+        t = time.time()
+        out = run_cli(["train", *common, *f32, "--checkpoint_dir", w(f"ckpt_{name}"), "--mesh",
+                       "--metrics", w(f"mesh_{name}.jsonl")])
+        row = {"train_s": time.time() - t, "epoch_s": epoch_seconds(out), **mesh_numbers(out)}
+        if "[train] block-DP mesh over 1 devices" not in out or row["backend"] != "nccl":
+            fail("train --mesh did not run one NCCL rank")
+        return row
+
+    def gloo_w2(name, fn, flags=f32):
+        args = build_parser().parse_args(["train", *common, *flags, "--checkpoint_dir", w(f"ckpt_{name}"),
+                                          "--metrics", w(f"mesh_{name}.jsonl")])
+        job = train_job(args, grids, log=lambda line: None)
+        t = time.time()
+        ranks = run_group(fn, 2, "gloo", ["cuda:0", "cuda:0"], args=([job],), kwargs={"echo": True})
+        out = "\n".join(ranks[0][0]["log"])
+        if not np.array_equal(ranks[0][0]["emb"], ranks[1][0]["emb"]):
+            fail("the two ranks ended with different embeddings")
+        return {"train_s": time.time() - t, "epoch_s": epoch_seconds(out), **mesh_numbers(out)}
+
+    # one net step over every block (the batch is the block count), then the
+    # embedding update: from the init (q=1), and resumed from plain_a's
+    # snapshot after epoch 0 (q=2, the embeddings' second Adam step)
+    n_blocks = len(grids["origins"])
+    one_step = {1: ["--epochs", "1", "--phase_change", "1", "--eval_every", "1", "--compute_dtype", "f32",
+                    "--batchsize", str(n_blocks)],
+                2: ["--epochs", "2", "--phase_change", "1", "--eval_every", "1", "--compute_dtype", "f32",
+                    "--batchsize", str(n_blocks), "--resume"]}
+
+    # the compared runs, deterministic
+    det = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        det["plain_a"], det["plain_b"] = plain("plain_a"), plain("plain_b")
+        det["nccl_w1"] = nccl_w1("nccl_w1")
+        det["gloo_w2"] = gloo_w2("gloo_w2", deterministic_train_on_mesh)
+        spread = {}
+        for q, flags in one_step.items():
+            for name in (f"step_q{q}_plain", f"step_q{q}_gloo_w2"):
+                os.makedirs(w(f"ckpt_{name}"))
+                if q == 2:
+                    shutil.copy(w("ckpt_plain_a/state_0000.npz"), w(f"ckpt_{name}"))
+            det[f"step_q{q}_plain"] = plain(f"step_q{q}_plain", flags)
+            det[f"step_q{q}_gloo_w2"] = gloo_w2(f"step_q{q}_gloo_w2", deterministic_train_on_mesh, flags)
+            args = build_parser().parse_args(["train", *common, *flags])
+            spread[q] = split_spread(torch, train_job(args, grids, log=lambda line: None), q,
+                                     w("ckpt_plain_a/state_0000.npz") if q == 2 else None)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    check = {}
+    metrics = {name: train_rows(w(f"mesh_{name}.jsonl")) for name in det}
+    for name, rows in metrics.items():
+        log(f"block-DP run {name} (deterministic): " + json.dumps(
+            [{k: r[k] for k in ("epoch", "q", *MESH_METRICS, "lat_amax")} for r in rows]))
+    for epoch in range(MESH_EPOCHS):
+        a, b = (checkpoint_arrays(w(f"ckpt_{n}"), epoch) for n in ("plain_a", "plain_b"))
+        check[f"plain_spread_epoch{epoch}"] = {k: float(np.abs(b[k].astype(np.float64) - v).max())
+                                               for k, v in held(a).items()}
+        if any(not np.array_equal(a[k], b[k]) for k in a):
+            fail(f"two deterministic plain runs differ after epoch {epoch}: {check[f'plain_spread_epoch{epoch}']}")
+        w1 = checkpoint_arrays(w("ckpt_nccl_w1"), epoch)
+        if set(w1) != set(a) or any(not np.array_equal(w1[k], a[k]) for k in a):
+            fail(f"world size 1 (NCCL) differs from plain train after epoch {epoch}")
+        w2 = held(checkpoint_arrays(w("ckpt_gloo_w2"), epoch))
+        check[f"gloo_w2_epoch{epoch}"] = {
+            k: {"max_abs": float(np.abs(w2[k].astype(np.float64) - v).max()),
+                "share_of_tolerance": share_of_tolerance(w2[k], v, b[k])}
+            for k, v in held(a).items()}
+        log(f"block-DP after epoch {epoch}: plain_b == plain_a and nccl_w1 == plain_a bit for bit; "
+            f"gloo_w2 vs plain_a (reported, not held): " + json.dumps(check[f"gloo_w2_epoch{epoch}"]))
+    if metrics["nccl_w1"] != metrics["plain_a"]:
+        fail("world size 1 (NCCL) logged other metrics than plain train")
+    shares = {f"{k}_epoch{e}": share_of_tolerance(m[k], pa[k], pb[k])
+              for e, (pa, pb, m) in enumerate(zip(metrics["plain_a"], metrics["plain_b"], metrics["gloo_w2"]))
+              for k in MESH_METRICS}
+    for q in one_step:
+        pa, m = metrics[f"step_q{q}_plain"][-1], metrics[f"step_q{q}_gloo_w2"][-1]
+        shares.update({f"{k}_one_step_q{q}": share_of_tolerance(m[k], pa[k], pa[k]) for k in MESH_METRICS})
+        epoch = q - 1
+        ref, got = (state_moments(w(f"ckpt_step_q{q}_{n}"), epoch) for n in ("plain", "gloo_w2"))
+        if set(got) != set(ref):
+            fail(f"one-step snapshots hold other arrays: {sorted(set(got) ^ set(ref))}")
+        # the net: both steps start from one exp_avg, so the difference of
+        # the new ones is (1 - b1) x the difference of the gradients
+        rows = {}
+        for k, (diff_split, norm) in spread[q].items():
+            d = float(np.linalg.norm(got[f"opt/exp_avg/{k}"].astype(np.float64) - ref[f"opt/exp_avg/{k}"])) / (1 - ADAM_B1)
+            rows[k] = [d / max(norm, 1e-30), diff_split / max(norm, 1e-30),
+                       d / max(MESH_SPREAD_FACTOR * diff_split, MESH_RTOL * norm, 1e-30)]
+        # the embeddings: each row's gradient is its own block's
+        for k in ("emb_opt/exp_avg", "emb_opt/exp_avg_sq"):
+            rows[k] = [rel_l2(got[k], ref[k]), None, rel_l2(got[k], ref[k]) / MESH_RTOL]
+        check[f"one_step_q{q}"] = rows
+        pa_arr, w2_arr = (held(checkpoint_arrays(w(f"ckpt_step_q{q}_{n}"), epoch)) for n in ("plain", "gloo_w2"))
+        moved = {k: float(np.abs(w2_arr[k].astype(np.float64) - v).max()) for k, v in pa_arr.items()}
+        check[f"one_step_q{q}_params_max_abs"] = moved
+        worst = max(rows, key=lambda k: rows[k][2])
+        log(f"block-DP one step at q={q} (gloo_w2 vs plain from the same state): gradients within "
+            f"{rows[worst][2]:.4f} of their tolerance ({worst}); params after the step differ by up to "
+            f"{max(moved.values()):.3e} (reported); per array [relative L2 distance of the gradients, the same "
+            f"plain gradient summed from two half-batch calls, share of the tolerance]: " + json.dumps(rows))
+        if rows[worst][2] > 1.0:
+            fail(f"block-DP one step at q={q}: the gradients left the tolerance: {rows}")
+    check["gloo_w2_metrics_share_of_tolerance"] = shares
+    log(f"block-DP gloo_w2: largest metric difference from plain as a share of its tolerance "
+        f"{max(shares.values()):.4f} ({max(shares, key=shares.get)})")
+    if max(shares.values()) > 1.0:
+        fail(f"block-DP gloo_w2's metrics left the tolerance against plain train: {shares}")
+
+    # the timed runs, cuDNN free
+    runs = {"plain": plain("plain_timed"), "nccl_w1": nccl_w1("nccl_w1_timed"),
+            "gloo_w2_one_card": gloo_w2("gloo_w2_timed", train_on_mesh)}
+
+    out = run_cli(["train", *common, "--epochs", str(MESH_BF16_EPOCHS), "--phase_change", str(MESH_BF16_PHASE_CHANGE),
+                   "--eval_every", "0", "--mesh", "--checkpoint_dir", w("ckpt_mesh_bf16"),
+                   "--metrics", w("train_mesh_bf16.jsonl")])
+    rows = train_rows(w("train_mesh_bf16.jsonl"))
+    runs["nccl_w1_bf16"] = {"epoch_s": epoch_seconds(out), "loss": [r["loss"] for r in rows], **mesh_numbers(out)}
+    q1 = [r["loss"] for r in rows if r["q"] == 1]
+    if len(rows) != MESH_BF16_EPOCHS or not all(np.isfinite(r["loss"]) for r in rows) or not q1[-1] < q1[0]:
+        fail(f"bf16 block-DP losses not finite or not falling within q=1: {runs['nccl_w1_bf16']['loss']}")
+
+    thh = threshold_keeping(w("ckpt_gloo_w2"), n_points, "cuda")
+    t = time.time()
+    out = run_cli(["encode", *common, "--load_checkpoint", w("ckpt_gloo_w2"), "--pack_fn", w("pack_mesh.pk"),
+                   "--recon", w("rc_enc_mesh.ply"), "--thh", str(thh)])
+    codec_row = {"thh": thh, "encode_s": time.time() - t, **encode_numbers(out)}
+    codec_row["decode_s"] = decode_in_second_process(w("pack_mesh.pk"), w("rc_dec_mesh.ply"))
+    codec_row["parity"] = same_bytes(w("rc_enc_mesh.ply"), w("rc_dec_mesh.ply"))
+    if not codec_row["parity"] or codec_row["n_points_rec"] == 0:
+        fail("the world-size-2 checkpoint: rc_enc != rc_dec across processes, or an empty cloud")
+    codec_row["eval"] = run_eval(K, w("sphere.ply"), w("rc_dec_mesh.ply"))
+    log("block-DP codec: " + json.dumps(codec_row))
+    log("seconds per epoch (trainer's log): " + ", ".join(
+        f"{k} {v['epoch_s']}" for k, v in runs.items()) + " (gloo_w2_one_card: two ranks share one card, no speedup)"
+        + "; deterministic: " + ", ".join(f"{k} {v['epoch_s']}" for k, v in det.items()))
+    return {"runs": runs, "deterministic_runs": det, "check": check, "codec": codec_row}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workdir", default=os.path.join(ROOT, ".work", "chip_smoke"))
     args = ap.parse_args()
     t_start = time.time()
+    # cuBLAS reads it at its first call; the block-DP phase's deterministic
+    # runs need it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
 
@@ -743,6 +1056,12 @@ def main() -> int:
     log("eval --d2: " + json.dumps(d2))
     if d2_launches != 4 or "d2_psnr" not in d2:
         fail(f"eval --d2 launched the EDT kernel {d2_launches} times (4 expected) or printed no D2")
+    # 9. block-DP at the flagship width on the same grids
+    K.LAUNCHES = 0
+    t = time.time()
+    mesh_stats = phase_mesh(torch, K, w, len(pts))
+    mesh_launches = K.LAUNCHES
+    log(f"block-DP path: {time.time() - t:.2f} s, EDT launches {mesh_launches}")
     log("summary: " + json.dumps({
         "bf16": {k: bstats[k] for k in ("flip_share", "parity")} | {
             k: v["median_ms"] for k, v in bstats["warm_decode"].items()},
@@ -750,6 +1069,8 @@ def main() -> int:
                                                 "latent_table_bits", "parity")} for m in MODES},
         "mode_decode_process_s": mstats["decode_process_s"],
         "d2": d2,
+        "mesh": {k: {kk: v[kk] for kk in ("epoch_s", "bytes_per_step", "allreduce_ms_median") if kk in v}
+                 for k, v in mesh_stats["runs"].items()},
     }))
     shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"total {time.time() - t_start:.1f} s")
@@ -759,9 +1080,10 @@ def main() -> int:
         "route": "cuda",
         "source": "nvfpcc_tpu_torch/csrc/edt.cu",
         "replaces": "nvfpcc_tpu/ops/pallas/edt_pallas.py:157",
-        "launches": launches + ctx_launches + bf16_launches + modes_launches + d2_launches,
+        "launches": launches + ctx_launches + bf16_launches + modes_launches + d2_launches + mesh_launches,
         "launches_by_stage": {"grids": grids_launches, "eval": eval_launches, "ctx_eval": ctx_launches,
-                              "bf16_eval": bf16_launches, "modes_eval": modes_launches, "eval_d2": d2_launches},
+                              "bf16_eval": bf16_launches, "modes_eval": modes_launches, "eval_d2": d2_launches,
+                              "mesh_eval": mesh_launches},
         **kstats,
     }]}))
     print(json.dumps({"ok": True, "device": {

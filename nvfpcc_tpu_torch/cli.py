@@ -16,11 +16,16 @@ Flag-compatible with ``python -m nvfpcc_tpu.cli``:
 ``device`` run on the CUDA card (the EDT kernel included) and fail if there
 is none. Checkpoints and packs are the JAX package's formats, so a JAX
 checkpoint encodes here and packs decode in either package. ``train`` runs
-every entropy mode on one device; ``encode --ctx_post`` fits the context
-predictor post hoc; ``encode --recon_dtype bf16`` writes a pack whose
-reconstruction runs in bfloat16 on both ends; ``eval --d2`` adds the
-point-to-plane D2 PSNR. ``train --mesh`` exits with the ROADMAP item that
-ports it.
+every entropy mode; ``encode --ctx_post`` fits the context predictor post
+hoc; ``encode --recon_dtype bf16`` writes a pack whose reconstruction runs
+in bfloat16 on both ends; ``eval --d2`` adds the point-to-plane D2 PSNR.
+
+``train --mesh`` is block-data-parallel training (``nvfpcc_tpu_torch.parallel``):
+started alone it runs one rank per visible CUDA device (NCCL), or one rank
+with ``--platform cpu`` (gloo); under ``torchrun`` it joins the group the
+launcher describes:
+
+    torchrun --nproc_per_node 4 -m nvfpcc_tpu_torch.cli train cloud.ply --mesh
 """
 
 from __future__ import annotations
@@ -120,10 +125,10 @@ def resolve_auto_train(level: int, n_symbols: int) -> str:
 # results/round3/ctx_capacity_sweep.json) is retired: the bf16 trajectory
 # lands on far lower-entropy latents and the conditional cuts collapse ~2.5x
 # with it (RESULTS.md round 5). Single-cloud provenance: vox11-sphere
-# constants used as a break-even model, not re-measured per cloud (vox11
-# torus validation in results/round5/ctx_capacity2_torus.json); explicit
-# --entropy_mode/--ctx_hidden/--ctx_tail flags remain authoritative
-# overrides.
+# constants used as a break-even model, not re-measured per cloud (a vox11
+# torus validation was planned but never landed: results/round5/ holds no
+# torus run); explicit --entropy_mode/--ctx_hidden/--ctx_tail flags remain
+# authoritative overrides.
 CTX_POST_ECONOMICS = (
     # (hidden, tail, expected stream cut b/sym, predictor payload bits)
     (16, 0, 2.2856 - 2.2050, 13_408.0),
@@ -263,31 +268,70 @@ def cmd_grids(args) -> int:
 
 
 def cmd_train(args) -> int:
-    from nvfpcc_tpu_torch.train.loop import train
+    from nvfpcc_tpu_torch.parallel import mesh as pm
 
-    if args.mesh:
-        raise SystemExit("train --mesh (block-DP) is not ported to nvfpcc_tpu_torch yet (ROADMAP A16)")
-    device = resolve_device(args.platform)
+    if args.mesh and pm.under_torchrun():
+        mesh = pm.init_distributed("cpu" if args.platform == "cpu" else "cuda")
+        try:
+            return _train(args, mesh.device, mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+    return _train(args, resolve_device(args.platform), None)
+
+
+def _train(args, device, mesh) -> int:
+    """``train`` in one process, as one rank of a torchrun group (``mesh``),
+    or, with ``--mesh`` started alone, over a group of its own."""
+    from nvfpcc_tpu_torch.parallel import mesh as pm
+    from nvfpcc_tpu_torch.train.loop import train, train_on_mesh
+
+    # under torchrun rank 0 builds the grids if they are not cached; the
+    # other ranks wait for it, then read them
+    if mesh is not None and mesh.rank:
+        torch.distributed.barrier()
     art = load_or_build_artifacts(args.cloud, args.depth, args.level, device)
+    if mesh is not None and not mesh.rank:
+        torch.distributed.barrier()
+    job = train_job(args, art, print if mesh is None or not mesh.rank else (lambda line: None))
+    if not args.mesh:
+        gt, dist, mcfg, cfg = (job.pop(k) for k in ("gt", "dist", "model_cfg", "cfg"))
+        train(gt, dist, mcfg, cfg, device, **job)
+        return 0
+    if mesh is not None:  # a rank that torchrun started
+        if not mesh.rank:
+            print(f"[train] block-DP mesh over {mesh.world} devices", flush=True)
+        train_on_mesh(mesh, [job], echo=True)
+        return 0
+    # started alone: one rank per visible CUDA device, one on the CPU
+    world = 1 if device.type == "cpu" else torch.cuda.device_count()
+    print(f"[train] block-DP mesh over {world} devices", flush=True)
+    devices = ["cpu"] if device.type == "cpu" else [f"cuda:{r}" for r in range(world)]
+    pm.run_group(train_on_mesh, world, "gloo" if device.type == "cpu" else "nccl", devices,
+                 args=([job],), kwargs={"echo": True})
+    return 0
+
+
+def train_job(args, art: dict, log=print) -> dict:
+    """``train``'s keyword arguments for parsed ``train`` flags and a cloud's
+    grids (a job of ``train.loop.train_on_mesh``): the grids, the model and
+    training configs (``--entropy_mode auto`` resolved here, with a line to
+    ``log``) and the output paths."""
     ch = args.ch if args.ch is not None else _DEFAULT_CH
     if args.entropy_mode == "auto":
         args.entropy_mode = resolve_auto_train(args.level, len(art["origins"]) * ch * 8)
-        print(
+        log(
             f"[train] entropy_mode auto -> {args.entropy_mode} (channel unless the level is >= 6 "
             "and the ctx_post upgrade pays at this symbol count)"
         )
-    mcfg = _model_cfg(args)
     cfg = TrainConfig(
         lmbda=args.lmbda, w1=args.w1, w2=args.w2, wemb=args.wemb, lr=args.lr,
         batch_size=args.batchsize, epochs=args.epochs, phase_change=args.phase_change,
         shuffle=args.shuffle, eval_every=args.eval_every, compute_dtype=args.compute_dtype,
         emb_chunks=args.emb_chunks, seed=args.seed,
     )
-    train(
-        art["gt"], art["dist"], mcfg, cfg, device, checkpoint_dir=args.checkpoint_dir,
-        resume=args.resume, metrics_path=args.metrics, profile_dir=args.profile,
-    )
-    return 0
+    return dict(gt=art["gt"], dist=art["dist"], model_cfg=_model_cfg(args), cfg=cfg,
+                checkpoint_dir=args.checkpoint_dir, resume=args.resume, metrics_path=args.metrics,
+                profile_dir=args.profile)
 
 
 def _load_train_state(args, n_blocks: int):
@@ -470,7 +514,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--eval_every", type=int, default=10)
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--checkpoint_dir", type=str, default="ckpts")
-    t.add_argument("--mesh", action="store_true", help="block-DP over all devices (not ported yet)")
+    t.add_argument("--mesh", action="store_true", help="block-DP over all devices")
     t.add_argument(
         "--resume", action="store_true",
         help="resume from the latest full train-state snapshot in checkpoint_dir",

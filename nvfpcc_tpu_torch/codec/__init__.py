@@ -18,6 +18,7 @@ from nvfpcc_tpu_torch.codec.codec import (  # noqa: F401
     save_pack,
 )
 from nvfpcc_tpu_torch.codec.weights import (  # noqa: F401
+    check_quantized,
     pack_weights,
     quantize_residuals,
     unpack_weights,

@@ -232,3 +232,16 @@ def weight_pack_bits(pack: dict) -> Tuple[int, int]:
     coded = 8 * len(pack["bit_stream"]) + table_bits
     as_is = 32 * sum(int(np.asarray(v).size) for v in pack["as_is_pool"].values())
     return coded, as_is
+
+
+def check_quantized(params: dict, qp: int = 16) -> bool:
+    """True iff all transmitted kernel residuals are on the 1/qp grid
+    (the reference's discreteness precondition,
+    ``util_code_quantized_weights.py:46-50``). ``params`` is a numpy tree
+    (``utils.params.params_to_numpy``)."""
+    dp = params["decoder"]
+    for name in TRANSMITTED_KERNELS:
+        k = np.asarray(dp[name]["kernel"], np.float64) * qp
+        if not np.allclose(k, np.rint(k), atol=1e-4):
+            return False
+    return True

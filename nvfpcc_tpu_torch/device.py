@@ -49,11 +49,12 @@ def set_train_numerics() -> None:
 
     TF32 stays off: the rate terms and the f32 compute path are sensitive to
     it. Training needs no bit equality across processes, so cuDNN may pick
-    its algorithms freely. The codec calls :func:`set_numerics` before every
-    reconstruction, so nothing set here reaches a later encode or decode in
-    the same process.
+    its algorithms freely, unless the caller turned on
+    ``torch.use_deterministic_algorithms`` (two runs that must agree bit for
+    bit). The codec calls :func:`set_numerics` before every reconstruction,
+    so nothing set here reaches a later encode or decode in the same process.
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.deterministic = torch.are_deterministic_algorithms_enabled()

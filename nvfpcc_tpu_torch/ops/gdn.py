@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from nvfpcc_tpu_torch.ops.ste import lower_bound
+from nvfpcc_tpu_torch.ops.ste import lower_bound, lower_bound_gate
 
 REPARAM_OFFSET = 2.0 ** -18
 PEDESTAL = REPARAM_OFFSET ** 2
@@ -28,10 +28,10 @@ def gdn_init(ch: int) -> dict:
     return {"beta": beta, "gamma": gamma}
 
 
-def _norm_pool(params: dict, x: torch.Tensor) -> torch.Tensor:
-    beta = lower_bound(params["beta"], BETA_BOUND)
+def _norm_pool(params: dict, x: torch.Tensor, gate: bool = True) -> torch.Tensor:
+    beta = lower_bound(params["beta"], BETA_BOUND, gate)
     beta = beta * beta - PEDESTAL
-    gamma = lower_bound(params["gamma"], GAMMA_BOUND)
+    gamma = lower_bound(params["gamma"], GAMMA_BOUND, gate)
     gamma = gamma * gamma - PEDESTAL
     # a bf16 activation (mixed-precision training) is squared in bf16 and
     # the pool is taken in f32, so GDN/IGDN return f32 and the next conv
@@ -40,14 +40,14 @@ def _norm_pool(params: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.einsum("...i,oi->...o", sq, gamma) + beta)
 
 
-def gdn_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+def gdn_apply(params: dict, x: torch.Tensor, gate: bool = True) -> torch.Tensor:
     """GDN: divide by the norm pool."""
-    return x / _norm_pool(params, x)
+    return x / _norm_pool(params, x, gate)
 
 
-def igdn_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+def igdn_apply(params: dict, x: torch.Tensor, gate: bool = True) -> torch.Tensor:
     """IGDN: multiply by the norm pool."""
-    return x * _norm_pool(params, x)
+    return x * _norm_pool(params, x, gate)
 
 
 class GDN(nn.Module):
@@ -60,7 +60,16 @@ class GDN(nn.Module):
         self.beta = nn.Parameter(init["beta"])
         self.gamma = nn.Parameter(init["gamma"])
         self.inverse = inverse
+        # block-DP: the bounds pass the rank's whole gradient, and
+        # gate_grads() gates the group's sum (see ops.ste.lower_bound)
+        self.defer_gate = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         params = {"beta": self.beta, "gamma": self.gamma}
-        return igdn_apply(params, x) if self.inverse else gdn_apply(params, x)
+        gate = not self.defer_gate
+        return igdn_apply(params, x, gate) if self.inverse else gdn_apply(params, x, gate)
+
+    def gate_grads(self) -> None:
+        """Apply the bounds' gates to ``beta.grad`` and ``gamma.grad``."""
+        for p, bound in ((self.beta, BETA_BOUND), (self.gamma, GAMMA_BOUND)):
+            p.grad = lower_bound_gate(p.detach(), p.grad, bound)

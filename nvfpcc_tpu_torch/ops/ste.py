@@ -5,7 +5,7 @@
 - ``bypass_round16`` — round to the 1/16 grid, identity gradient.
 - ``lower_bound`` / ``upper_bound`` — clamps whose gradient passes iff the
   input is inside the bound or the gradient pushes it back inside; no
-  gradient flows to the bound.
+  gradient flows to the bound (``lower_bound_gate``: that rule alone).
 
 ``torch.round`` rounds half to even, like ``jnp.round``.
 """
@@ -37,17 +37,23 @@ def bypass_round16(x: torch.Tensor) -> torch.Tensor:
     return _BypassRoundQ.apply(x, 16)
 
 
+def lower_bound_gate(x: torch.Tensor, g: torch.Tensor, bound: float) -> torch.Tensor:
+    """The gradient :func:`lower_bound` passes to ``x`` when its output's
+    gradient is ``g``."""
+    return g * ((x >= bound) | (g < 0))
+
+
 class _LowerBound(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, bound):
+    def forward(ctx, x, bound, gate):
         ctx.save_for_backward(x)
-        ctx.bound = bound
+        ctx.bound, ctx.gate = bound, gate
         return torch.clamp_min(x, bound)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        return g * ((x >= ctx.bound) | (g < 0)), None
+        return (lower_bound_gate(x, g, ctx.bound) if ctx.gate else g), None, None
 
 
 class _UpperBound(torch.autograd.Function):
@@ -63,9 +69,13 @@ class _UpperBound(torch.autograd.Function):
         return g * ((x <= ctx.bound) | (g > 0)), None
 
 
-def lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
-    """``max(x, bound)``; gradient passes iff ``x >= bound`` or it is negative."""
-    return _LowerBound.apply(x, float(bound))
+def lower_bound(x: torch.Tensor, bound: float, gate: bool = True) -> torch.Tensor:
+    """``max(x, bound)``; gradient passes iff ``x >= bound`` or it is negative.
+    ``gate=False`` passes the whole gradient, for a caller that applies
+    :func:`lower_bound_gate` to a sum of such gradients itself (a block-DP
+    rank's parameter gradient is one term of the group's sum, and the gate
+    depends on the sum's sign)."""
+    return _LowerBound.apply(x, float(bound), gate)
 
 
 def upper_bound(x: torch.Tensor, bound: float) -> torch.Tensor:

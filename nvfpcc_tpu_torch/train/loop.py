@@ -17,6 +17,15 @@
   (:class:`NoiseSource`); nothing draws from a global RNG. The default
   source is re-seeded from ``(seed, epoch)`` at each epoch's start, so a
   resumed run draws what a straight run draws.
+- Block-DP (``train(mesh=...)``, ``nvfpcc_tpu_torch.parallel``): each rank
+  holds a contiguous slice of the padded block axis (:class:`Shard`). A
+  rank computes the loss terms of the rows of each global batch it holds,
+  normalized by the whole batch's point count; the parameter-only weight
+  rate counts on one rank; the decoder gradients are summed over the group
+  in one flat all-reduce per net step (GDN's bound gates, which depend on
+  the sign of the whole gradient, act after the sum), and every rank takes
+  the same Adam step. Every rank draws what one process draws and keeps its rows, so
+  block-DP follows one process's f32 trajectory.
 
 Master params, both Adam states, embeddings and all loss and rate math are
 f32; ``cfg.compute_dtype="bf16"`` runs only the decoder convs in bf16.
@@ -38,6 +47,8 @@ import torch
 from nvfpcc_tpu_torch.config import ModelConfig, TrainConfig
 from nvfpcc_tpu_torch.device import set_train_numerics
 from nvfpcc_tpu_torch.models import decoder as M
+from nvfpcc_tpu_torch.ops.gdn import GDN
+from nvfpcc_tpu_torch.parallel import mesh as pm
 from nvfpcc_tpu_torch.train import losses as L
 from nvfpcc_tpu_torch.utils import checkpoint as ckpt_util
 from nvfpcc_tpu_torch.utils.params import params_from_numpy, params_to_numpy
@@ -48,6 +59,10 @@ METRIC_KEYS = (
     "loss", "bce", "ms0", "ms1", "pacc", "nacc", "bpp", "b_latent", "b_net",
     "sse", "denom", "lat_amax",
 )
+# under a mesh the rows also carry the accuracy counts: ratios from two
+# ranks do not combine, counts do (pacc/nacc are recomputed after the sum)
+ACC_COUNT_KEYS = ("tp", "ap", "tn", "an")
+MESH_METRIC_KEYS = METRIC_KEYS + ACC_COUNT_KEYS
 
 
 @dataclass
@@ -131,14 +146,20 @@ def rd_loss(
     noise: Optional[Dict[str, torch.Tensor]] = None,
     compute_dtype=None,
     n_pts_override=None,
+    count_net: bool = True,
+    acc_counts: bool = False,
 ):
     """The reference's full RD objective + metrics (``NVFPCC.py:160-196``).
 
     ``gt_b``/``dist_b`` are (B, 32, 32, 32, 1) channels-last f32.
     ``compute_dtype`` runs the decoder convs at lower precision; the loss
     and rate math here stay f32 either way. ``n_pts_override`` is the global
-    point count a chunk of the full-set embedding update normalizes its
-    latent rate by. Returns (loss, metrics dict of 0-dim tensors).
+    point count a chunk of the full-set embedding update, or a block-DP
+    rank's share of a batch, normalizes its latent rate by. A rank that does
+    not own the parameter-only weight rate passes ``count_net=False`` (its
+    ``b_net`` is 0); ``acc_counts`` adds the accuracy counts
+    (:data:`ACC_COUNT_KEYS`) to the metrics. Returns (loss, metrics dict of
+    0-dim tensors).
     """
     out, cls_list, net_bits, latent_bits_pb = M.net_apply(
         net, emb_b, mode, q, noise, compute_dtype=compute_dtype
@@ -155,7 +176,7 @@ def rd_loss(
         n_pts = n_pts_override
 
     b_latent = latent_bits / n_pts
-    b_net = net_bits.sum() / n_total_pts
+    b_net = net_bits.sum() / n_total_pts if count_net else torch.zeros((), device=latent_bits.device)
     bpp = b_latent + b_net
     bpp_loss = b_latent * w1 + b_net * w2
 
@@ -168,7 +189,8 @@ def rd_loss(
     loss = bce + ms_bce0 + ms_bce1 + lmbda * bpp_loss
 
     with torch.no_grad():
-        pacc, nacc = L.acc_dense(out, gt_b, block_mask=block_mask)
+        counts = L.acc_counts(out, gt_b, block_mask=block_mask)
+        pacc, nacc = L.acc_ratios(*counts)
         sse, denom = L.sse1(out, gt_b, dist_b, cfg.sse_thh, block_mask=block_mask)
         # codable-alphabet guard: the coder clamps rounded latents outside
         # [-512, 512); track the max magnitude so drift toward the edge
@@ -182,17 +204,20 @@ def rd_loss(
         "bpp": bpp, "b_latent": b_latent, "b_net": b_net, "sse": sse, "denom": denom,
         "lat_amax": lat_amax,
     }
+    if acc_counts:
+        metrics.update(zip(ACC_COUNT_KEYS, counts))
     return loss, metrics
 
 
-def _stack_metrics(metrics: dict) -> torch.Tensor:
-    return torch.stack([metrics[k].detach().float() for k in METRIC_KEYS])
+def _stack_metrics(metrics: dict, keys=METRIC_KEYS) -> torch.Tensor:
+    return torch.stack([metrics[k].detach().float() for k in keys])
 
 
-def _prep_dense(gt: np.ndarray, dist: np.ndarray, device):
-    """Host grids (N,B,B,B) -> device channels-last f32 (N,B,B,B,1)."""
-    gt_d = torch.as_tensor(np.asarray(gt), device=device).float()[..., None]
-    dist_d = torch.as_tensor(np.asarray(dist), device=device).float()[..., None]
+def _prep_dense(gt, dist, device):
+    """Grids (N,B,B,B), host arrays or tensors -> device channels-last f32
+    (N,B,B,B,1)."""
+    gt_d = torch.as_tensor(gt, device=device).float()[..., None]
+    dist_d = torch.as_tensor(dist, device=device).float()[..., None]
     return gt_d, dist_d
 
 
@@ -244,6 +269,80 @@ class NoiseSource:
         return {n: t.reshape(s) for (n, s), t in zip(shapes.items(), flat.split(sizes))}
 
 
+@dataclass
+class Shard:
+    """A rank's part of a block-DP run: its rows (:meth:`Mesh.rows`) of the
+    padded block axis, the real block count, and the points of every padded
+    block (host), from which each batch's global normalizer is summed."""
+
+    mesh: pm.Mesh
+    n_blocks: int
+    block_pts: np.ndarray  # (n_padded,) int64; padding rows hold 0
+
+    @property
+    def rows(self) -> slice:
+        return self.mesh.rows(len(self.block_pts))
+
+    def batches(self, idx: torch.Tensor, mask: torch.Tensor) -> list:
+        """Per global batch of :func:`batch_plan`, None when none of its
+        blocks lies on this rank, else (local row indices, block mask,
+        positions in the batch, the batch's point count as a 0-dim f32
+        device tensor, whether this rank counts the weight rate: the one
+        holding the batch's first block, which is never padding). Two
+        host-to-device copies for the whole epoch."""
+        lo, hi = self.rows.start, self.rows.stop
+        idx_h, mask_h = idx.cpu().numpy(), mask.cpu().numpy()
+        sels = [np.flatnonzero((b >= lo) & (b < hi)) for b in idx_h]
+        flat = torch.as_tensor(np.concatenate(sels), device=idx.device)
+        # a tensor, as one process computes it: CUDA divides by a host
+        # scalar through its reciprocal, which rounds otherwise
+        pts = torch.as_tensor((self.block_pts[idx_h] * mask_h).sum(1), dtype=torch.float32, device=idx.device)
+        out, start = [], 0
+        for i, sel in enumerate(sels):
+            if not sel.size:
+                out.append(None)
+                continue
+            sel_t = flat[start:start + sel.size]
+            start += sel.size
+            out.append((idx[i][sel_t] - lo, mask[i][sel_t], sel_t, pts[i], bool(lo <= idx_h[i, 0] < hi)))
+        return out
+
+    def emb_noise(self, noise, shape, q: int) -> Dict[str, torch.Tensor]:
+        """One process's draw for the whole embedding update (at the real
+        block count: the flat draw also holds the kernel noise, and the
+        values a CUDA generator gives depend on the count), cut to this
+        rank's rows; padding rows get zeros."""
+        nz = noise.draw((self.n_blocks,) + tuple(shape[1:]), q)
+        if "latent" in nz:
+            r = self.rows
+            part = nz["latent"][r.start:min(r.stop, self.n_blocks)]
+            pad = r.stop - r.start - part.shape[0]
+            if pad:
+                part = torch.cat([part, part.new_zeros((pad,) + tuple(part.shape[1:]))])
+            nz = {**nz, "latent": part}
+        return nz
+
+
+def _all_reduce_grads(mesh: pm.Mesh, grads) -> list:
+    """The gradients summed over the group: one flat bucket, one all-reduce."""
+    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]), timed=True)
+    return [v.view_as(g) for g, v in zip(grads, flat.split([g.numel() for g in grads]))]
+
+
+def _reduce_rows(mesh: pm.Mesh, rows: torch.Tensor) -> np.ndarray:
+    """Per-rank metric rows (n, len(MESH_METRIC_KEYS)) -> the group's, on
+    the host (one fetch): sums, the max for ``lat_amax``, and pacc/nacc
+    from the summed counts (:func:`losses.acc_ratios`)."""
+    keys = MESH_METRIC_KEYS
+    j = keys.index("lat_amax")
+    amax = mesh.all_reduce(rows[:, j].clone(), "max")  # a copy: one row's column is a view
+    out = mesh.all_reduce(rows.contiguous())
+    out[:, j] = amax
+    pacc, nacc = L.acc_ratios(*(out[:, keys.index(k)] for k in ACC_COUNT_KEYS))
+    out[:, keys.index("pacc")], out[:, keys.index("nacc")] = pacc, nacc
+    return out.cpu().numpy()
+
+
 @contextlib.contextmanager
 def _frozen(net: M.Net):
     """The parameters as constants: no weight gradient is computed inside."""
@@ -257,8 +356,24 @@ def _frozen(net: M.Net):
             p.requires_grad_(True)
 
 
+@contextlib.contextmanager
+def _gates_deferred(net: M.Net, on: bool):
+    """With ``on``, GDN's bounds pass each rank's whole parameter gradient
+    inside; the caller gates the group's sum (``GDN.gate_grads``), as one
+    process gates the whole batch's. Yields the GDN modules."""
+    gdns = [m for m in net.modules() if isinstance(m, GDN)] if on else []
+    for m in gdns:
+        m.defer_gate = True
+    try:
+        yield gdns
+    finally:
+        for m in gdns:
+            m.defer_gate = False
+
+
 def emb_full_grad(
-    net, cfg, emb, gt, dist, block_valid, n_total_pts, q, noise: NoiseSource, emb_chunks=1
+    net, cfg, emb, gt, dist, block_valid, n_total_pts, q, noise: NoiseSource, emb_chunks=1,
+    shard: Optional[Shard] = None,
 ):
     """Gradient of the full-set embedding loss (reference ``NVFPCC.py:225-251``)
     with the parameters frozen, optionally in ``emb_chunks`` sequential block
@@ -266,21 +381,26 @@ def emb_full_grad(
     normalizer (the full-set point count dividing the latent rate) is passed
     into each chunk, so the chunk gradients concatenate to the full one. Each
     chunk draws its own noise. The block count must be a multiple of
-    ``emb_chunks`` (``train`` pads)."""
+    ``emb_chunks`` (``train`` pads). With a ``shard`` the arrays are the
+    rank's rows and the result is their gradient (one chunk; the rows are
+    already a cut of the full set)."""
     n = emb.shape[0]
     c = max(int(emb_chunks), 1)
-    if n % c:
-        raise ValueError(f"padded block count {n} not a multiple of emb_chunks {c}")
+    if n % c or (shard is not None and c != 1):
+        raise ValueError(f"padded block count {n} not a multiple of emb_chunks {c}, or chunks under a mesh")
     n_pts_g = None
     if c > 1:
         n_pts_g = (gt.reshape(n, -1).sum(1) * block_valid).sum()
+    elif shard is not None:
+        n_pts_g = torch.tensor(n_total_pts, dtype=torch.float32, device=emb.device)
     grads = []
     with _frozen(net):
         for sl in (slice(i * (n // c), (i + 1) * (n // c)) for i in range(c)):
             emb_c = emb.detach()[sl].requires_grad_(True)
+            nz = noise.draw(emb_c.shape, q) if shard is None else shard.emb_noise(noise, emb_c.shape, q)
             loss, _ = rd_loss(
                 net, cfg, emb_c, gt[sl], dist[sl], block_valid[sl], n_total_pts, "train", q,
-                noise.draw(emb_c.shape, q), cfg.compute_dtype, n_pts_override=n_pts_g,
+                nz, cfg.compute_dtype, n_pts_override=n_pts_g,
             )
             grads.append(torch.autograd.grad(loss, emb_c)[0])
     return grads[0] if c == 1 else torch.cat(grads)
@@ -288,30 +408,54 @@ def emb_full_grad(
 
 def net_steps(
     state: TrainState, cfg: TrainConfig, gt, dist, idx, mask, n_total_pts: float, q: int,
-    noise: NoiseSource, epoch: int,
+    noise: NoiseSource, epoch: int, shard: Optional[Shard] = None,
 ) -> torch.Tensor:
     """The per-batch net updates of one epoch (Adam on the parameters; the
     gathered embedding rows are constants). Returns the per-step metrics
-    stacked (n_batches, len(METRIC_KEYS)) on the device."""
+    stacked (n_batches, len(METRIC_KEYS)) on the device. With a ``shard``
+    the arrays are the rank's rows, ``idx``/``mask`` the global plan, the
+    gradients are summed over the group before each step, and the rows
+    are the rank's (n_batches, len(MESH_METRIC_KEYS)) share."""
     net, opt = state.net, state.opt
     params = list(net.parameters())
     n_batches = idx.shape[0]
     emb_const = state.emb.detach()
+    noise_shape = (idx.shape[1],) + tuple(state.emb.shape[1:])
+    if shard is None:
+        batches, keys = [(idx[i], mask[i], None, None, True) for i in range(n_batches)], METRIC_KEYS
+    else:
+        batches, keys = shard.batches(idx, mask), MESH_METRIC_KEYS
     rows = []
-    for i in range(n_batches):
-        bidx = idx[i]
-        loss, metrics = rd_loss(
-            net, cfg, emb_const[bidx], gt[bidx], dist[bidx], mask[i], n_total_pts, "train", q,
-            noise.draw((bidx.shape[0],) + tuple(state.emb.shape[1:]), q), cfg.compute_dtype,
-        )
-        grads = torch.autograd.grad(loss, params)
-        for p, g in zip(params, grads):
-            p.grad = g
-        lr = net_lr(cfg, n_batches, epoch * n_batches + i)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
-        rows.append(_stack_metrics(metrics))
+    with _gates_deferred(net, shard is not None) as gdns:
+        for i, batch in enumerate(batches):
+            nz = noise.draw(noise_shape, q)
+            if batch is None:  # none of the batch's blocks is on this rank
+                grads = [torch.zeros_like(p) for p in params]
+                rows.append(torch.zeros(len(keys), device=emb_const.device))
+            else:
+                bidx, bmask, sel, n_pts, owner = batch
+                if sel is not None and "latent" in nz:
+                    nz = {**nz, "latent": nz["latent"][sel]}
+                loss, metrics = rd_loss(
+                    net, cfg, emb_const[bidx], gt[bidx], dist[bidx], bmask, n_total_pts, "train", q,
+                    nz, cfg.compute_dtype, n_pts_override=n_pts, count_net=owner,
+                    acc_counts=shard is not None,
+                )
+                # a rank that does not count the weight rate leaves its
+                # parameters (the weight-rate model's) out of the graph
+                grads = torch.autograd.grad(loss, params, allow_unused=shard is not None)
+                grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+                rows.append(_stack_metrics(metrics, keys))
+            if shard is not None:
+                grads = _all_reduce_grads(shard.mesh, grads)
+            for p, g in zip(params, grads):
+                p.grad = g
+            for m in gdns:
+                m.gate_grads()
+            lr = net_lr(cfg, n_batches, epoch * n_batches + i)
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
     for p in params:
         p.grad = None
     return torch.stack(rows)
@@ -319,11 +463,12 @@ def net_steps(
 
 def emb_update(
     state: TrainState, cfg: TrainConfig, gt, dist, block_valid, n_total_pts: float, q: int,
-    noise: NoiseSource, epoch: int, emb_chunks: int = 1,
+    noise: NoiseSource, epoch: int, emb_chunks: int = 1, shard: Optional[Shard] = None,
 ) -> None:
-    """The once-per-epoch full-set embedding update (the second Adam)."""
+    """The once-per-epoch full-set embedding update (the second Adam; under a
+    mesh each rank steps its own rows: Adam acts element by element)."""
     state.emb.grad = emb_full_grad(
-        state.net, cfg, state.emb, gt, dist, block_valid, n_total_pts, q, noise, emb_chunks
+        state.net, cfg, state.emb, gt, dist, block_valid, n_total_pts, q, noise, emb_chunks, shard
     )
     for group in state.emb_opt.param_groups:
         group["lr"] = emb_lr(cfg, epoch)
@@ -333,27 +478,35 @@ def emb_update(
 
 def run_epoch(
     state: TrainState, cfg: TrainConfig, gt, dist, idx, mask, block_valid, n_total_pts: float,
-    q: int, noise: NoiseSource, epoch: int, emb_chunks: int = 1,
+    q: int, noise: NoiseSource, epoch: int, emb_chunks: int = 1, shard: Optional[Shard] = None,
 ) -> torch.Tensor:
     """One full epoch on ``state`` (in place): :func:`net_steps`, then
     :func:`emb_update`. ``idx``/``mask`` are :func:`batch_plan`'s on the
     device (``idx`` int64). Returns the per-step metrics on the device;
-    nothing is fetched here."""
+    nothing is fetched here (a ``shard``'s rows are the rank's share, see
+    :func:`net_steps`)."""
     noise.start_epoch(epoch, idx.shape[0])
-    rows = net_steps(state, cfg, gt, dist, idx, mask, n_total_pts, q, noise, epoch)
-    emb_update(state, cfg, gt, dist, block_valid, n_total_pts, q, noise, epoch, emb_chunks)
+    rows = net_steps(state, cfg, gt, dist, idx, mask, n_total_pts, q, noise, epoch, shard)
+    emb_update(state, cfg, gt, dist, block_valid, n_total_pts, q, noise, epoch, emb_chunks, shard)
     state.epoch = epoch
     return rows
 
 
 @torch.no_grad()
-def evaluate(net, cfg, emb, gt, dist, block_valid, n_total_pts) -> dict:
+def evaluate(net, cfg, emb, gt, dist, block_valid, n_total_pts, shard: Optional[Shard] = None) -> dict:
     """Full-set eval at q=2 rounded latents, no noise, f32 (reference
-    ``NVFPCC.py:308-364``). Returns the metrics as host floats."""
+    ``NVFPCC.py:308-364``). Returns the metrics as host floats; with a
+    ``shard``, the group's (every rank calls it)."""
+    if shard is None:
+        _, metrics = rd_loss(net, cfg, emb.detach(), gt, dist, block_valid, n_total_pts, "eval", 2)
+        return dict(zip(METRIC_KEYS, _stack_metrics(metrics).cpu().numpy()))
     _, metrics = rd_loss(
-        net, cfg, emb.detach(), gt, dist, block_valid, n_total_pts, "eval", 2
+        net, cfg, emb.detach(), gt, dist, block_valid, n_total_pts, "eval", 2,
+        n_pts_override=torch.tensor(n_total_pts, dtype=torch.float32, device=emb.device),
+        count_net=shard.mesh.rank == 0, acc_counts=True,
     )
-    return dict(zip(METRIC_KEYS, _stack_metrics(metrics).cpu().numpy()))
+    row = _reduce_rows(shard.mesh, _stack_metrics(metrics, MESH_METRIC_KEYS)[None])[0]
+    return dict(zip(MESH_METRIC_KEYS, row))
 
 
 def summarize_metrics(metrics) -> dict:
@@ -405,9 +558,23 @@ def checkpoint_meta(model_cfg: ModelConfig) -> dict:
     }
 
 
-def _pad_blocks(a: np.ndarray, n: int) -> np.ndarray:
-    a = np.asarray(a)
-    return np.concatenate([a, np.zeros((n - a.shape[0],) + a.shape[1:], a.dtype)])
+def _save_epoch(checkpoint_dir, epoch, state: TrainState, model_cfg, n_blocks, shard) -> None:
+    """The per-epoch checkpoint (real blocks only) and the train-state
+    snapshot. Under a mesh every rank gathers the embeddings and their Adam
+    moments (the snapshot holds the padded axis) and rank 0 writes."""
+    emb, emb_state = state.emb.detach(), None
+    if shard is not None:
+        st = state.emb_opt.state[state.emb]
+        emb, mu, nu = (pm.gather_rows(shard.mesh, t, len(shard.block_pts))
+                       for t in (emb, st["exp_avg"], st["exp_avg_sq"]))
+        emb_state = (emb.cpu().numpy(), mu.cpu().numpy(), nu.cpu().numpy(), int(st["step"]))
+        if shard.mesh.rank:
+            return
+    ckpt_util.save_checkpoint(
+        checkpoint_dir, epoch, params_to_numpy(state.net), emb[:n_blocks].cpu().numpy(),
+        meta=checkpoint_meta(model_cfg),
+    )
+    ckpt_util.save_train_state(checkpoint_dir, epoch, state, emb_state)
 
 
 def train(
@@ -422,6 +589,7 @@ def train(
     metrics_path: Optional[str] = None,
     profile_dir: Optional[str] = None,
     noise: Optional[NoiseSource] = None,
+    mesh: Optional[pm.Mesh] = None,
 ):
     """Full training run on ``device`` (reference ``train()``,
     ``NVFPCC.py:103-393``).
@@ -433,6 +601,13 @@ def train(
     appends one JSON line of metrics per epoch. ``profile_dir`` receives a
     ``torch.profiler`` trace of epochs 3-5. ``noise`` replaces the default
     :class:`NoiseSource` (tests replay another package's draws through it).
+
+    ``mesh`` runs this call as one rank of a block-DP group (every rank
+    calls ``train`` with the same arguments and its own ``device``): the
+    block axis is padded to a multiple of the world size, the rank keeps its
+    rows on the device, and rank 0 alone logs, writes the metrics and the
+    checkpoints, and profiles. The returned embeddings are all the real
+    blocks' on every rank; the returned embedding Adam holds the rank's rows.
     """
     device = torch.device(device)
     set_train_numerics()
@@ -442,20 +617,29 @@ def train(
         model_cfg.ch, model_cfg.channels, model_cfg.seed_tag, model_cfg.entropy_mode,
         model_cfg.ctx_detach_pred, model_cfg.ctx_hidden, ctx_tail=model_cfg.ctx_tail,
     )
+    if mesh is not None and mesh.rank:
+        log, metrics_path, profile_dir = (lambda s: None), None, None
 
-    emb_chunks = resolve_emb_chunks(cfg.emb_chunks, n_blocks)
-    n_padded = n_blocks + (-n_blocks) % emb_chunks
-    if n_padded != n_blocks:
-        gt, dist = _pad_blocks(gt, n_padded), _pad_blocks(dist, n_padded)
-    block_valid = torch.cat(
-        [torch.ones(n_blocks), torch.zeros(n_padded - n_blocks)]
-    ).to(device)
+    if mesh is not None:
+        # the ranks already split the full-set update; no chunking on top
+        emb_chunks = 1
+        n_padded = pm.padded_block_count(n_blocks, mesh.world)
+    else:
+        emb_chunks = resolve_emb_chunks(cfg.emb_chunks, n_blocks)
+        n_padded = n_blocks + (-n_blocks) % emb_chunks
+    gt, dist = pm.pad_blocks(np.asarray(gt), n_padded), pm.pad_blocks(np.asarray(dist), n_padded)
+    valid = np.concatenate([np.ones(n_blocks, np.float32), np.zeros(n_padded - n_blocks, np.float32)])
+    shard = None
+    if mesh is not None:
+        shard = Shard(mesh, n_blocks, gt.reshape(n_padded, -1).sum(1, dtype=np.int64))
+        gt, dist, valid = pm.shard_train_arrays(mesh, gt, dist, valid)
+    block_valid = torch.as_tensor(valid, device=device)
+    gt_d, dist_d = _prep_dense(gt, dist, device)
 
     net = initial_params(spec, model_cfg, device)
-    emb = M.init_embeddings(n_padded, model_cfg.ch, device).requires_grad_(True)
+    emb = M.init_embeddings(block_valid.shape[0], model_cfg.ch, device).requires_grad_(True)
     opt, emb_opt = make_optimizers(cfg, net, emb)
     state = TrainState(net, opt, emb, emb_opt)
-    gt_d, dist_d = _prep_dense(gt, dist, device)
     if noise is None:
         noise = NoiseSource(cfg.seed, spec, device)
 
@@ -467,11 +651,19 @@ def train(
             if snap["emb"].shape[0] != n_padded:
                 raise ValueError(
                     f"snapshot block axis {snap['emb'].shape[0]} != {n_padded} "
-                    "(another cloud or chunking than the snapshot's?)"
+                    "(mesh size changed since the snapshot? or another cloud or chunking)"
                 )
+            if shard is not None:  # every rank reads the file and keeps its rows
+                e = snap["emb_opt"]
+                snap["emb"], e["exp_avg"], e["exp_avg_sq"] = (
+                    a[shard.rows] for a in (snap["emb"], e["exp_avg"], e["exp_avg_sq"]))
             ckpt_util.restore_train_state(state, snap)
             start_epoch = snap["epoch"] + 1
             log(f"[train] resumed from {snap_path} (epoch {snap['epoch']})")
+    if mesh is not None:
+        pm.replicate(mesh, net)
+    keys = METRIC_KEYS if mesh is None else MESH_METRIC_KEYS
+    reduce_ms = []
 
     # profile a window after the warm-up epochs
     prof_start, prof_stop = 3, 5
@@ -496,15 +688,17 @@ def train(
         stacked = run_epoch(
             state, cfg, gt_d, dist_d, torch.as_tensor(idx, device=device).long(),
             torch.as_tensor(mask, device=device), block_valid, n_total_pts, q, noise, epoch,
-            emb_chunks,
+            emb_chunks, shard,
         )
         # the one fetch of the epoch; it also waits for the device
-        stacked = stacked.cpu().numpy()
+        stacked = stacked.cpu().numpy() if shard is None else _reduce_rows(mesh, stacked)
         epoch_s = time.time() - t0
+        if mesh is not None:
+            reduce_ms += mesh.timed_ms()
         if profiler is not None and epoch >= prof_stop:
             write_profile()
             profiler = None
-        s = summarize_metrics({k: stacked[:, j] for j, k in enumerate(METRIC_KEYS)})
+        s = summarize_metrics({k: stacked[:, j] for j, k in enumerate(keys)})
         if not np.isfinite(s["loss"]):
             raise TrainDivergence(f"non-finite loss at epoch {epoch} (q={q}): {s}")
         if metrics_path is not None:
@@ -520,9 +714,9 @@ def train(
 
         if cfg.eval_every > 0 and epoch % cfg.eval_every == 0:
             es = summarize_metrics(
-                evaluate(net, cfg, state.emb, gt_d, dist_d, block_valid, n_total_pts)
+                evaluate(net, cfg, state.emb, gt_d, dist_d, block_valid, n_total_pts, shard)
             )
-            if es.get("lat_amax", 0.0) > LATENT_GUARD:
+            if es.get("lat_amax", 0.0) > LATENT_GUARD and (mesh is None or not mesh.rank):
                 warnings.warn(
                     f"epoch {epoch}: max |rounded latent| = {es['lat_amax']:.0f} "
                     f"is approaching the coder alphabet edge (512); encode "
@@ -536,15 +730,44 @@ def train(
                 f"MSE1: {es['mse1']:.4f} PSNR1: {es['psnr1']:.4f}"
             )
             if checkpoint_dir is not None:
-                ckpt_util.save_checkpoint(
-                    checkpoint_dir, epoch, params_to_numpy(net),
-                    state.emb.detach()[:n_blocks].cpu().numpy(), meta=checkpoint_meta(model_cfg),
-                )
-                ckpt_util.save_train_state(checkpoint_dir, epoch, state)
+                _save_epoch(checkpoint_dir, epoch, state, model_cfg, n_blocks, shard)
 
     if profiler is not None:  # the run ended inside the window
         write_profile()
-    # strip the chunk padding from the returned embeddings
-    if n_padded != n_blocks:
+    if mesh is not None:
+        bucket = 4 * sum(p.numel() for p in net.parameters())
+        ms = np.asarray(reduce_ms if reduce_ms else [np.nan])
+        log(
+            f"[train] block-DP over {mesh.world} ranks ({mesh.backend}, {mesh.device.type}): "
+            f"{len(reduce_ms)} gradient all-reduces of {bucket} bytes, one per net step; "
+            f"{np.median(ms):.3f} ms median, {ms.mean():.3f} ms mean per step on rank 0"
+        )
+        emb_all = pm.gather_rows(mesh, state.emb, n_padded)[:n_blocks]
+        state = TrainState(net, opt, emb_all, emb_opt, state.epoch)
+    elif n_padded != n_blocks:  # strip the chunk padding from the returned embeddings
         state = TrainState(net, opt, state.emb.detach()[:n_blocks], emb_opt, state.epoch)
     return spec, state
+
+
+def train_on_mesh(mesh: pm.Mesh, jobs: list, echo: bool = False) -> list:
+    """Run :func:`train` on this rank of ``mesh`` once per entry of ``jobs``
+    (each a dict of train's keyword arguments: ``gt``, ``dist``,
+    ``model_cfg``, ``cfg`` and any of ``checkpoint_dir``, ``resume``,
+    ``metrics_path``, ``profile_dir``), in order. It is the function
+    ``parallel.run_group`` starts on every rank. ``echo`` prints rank 0's
+    log as it comes. Returns per job rank 0's log lines, the params tree
+    and all real blocks' embeddings (numpy) and the seconds it took."""
+    out = []
+    for job in jobs:
+        lines = []
+
+        def log(line, lines=lines):
+            lines.append(line)
+            if echo:
+                print(line, flush=True)
+
+        t0 = time.time()
+        _, state = train(device=mesh.device, log=log, mesh=mesh, **job)
+        out.append({"log": lines, "params": params_to_numpy(state.net),
+                    "emb": state.emb.detach().cpu().numpy(), "seconds": time.time() - t0})
+    return out

@@ -4,7 +4,8 @@
 - ``focal_dense``       — focal BCE on probabilities.
 - ``surf_focal_dense``  — distance-weighted focal: weight = dist + mask*beta,
   the main 'wfocal' loss.
-- ``acc_dense``         — pos/neg accuracy at a threshold.
+- ``acc_dense``         — pos/neg accuracy at a threshold (``acc_counts``:
+  its counts, which add across block shards).
 - ``sse1``              — SSE of the distance field over predicted-occupied
   voxels + count; feeds MSE1/PSNR1.
 - ``multiscale_gt``     — max-pool GT pyramid [8^3, 16^3, 32^3].
@@ -56,25 +57,34 @@ def surf_focal_dense(
     return _apply_block_mask(w * dist_w * logp, block_mask).sum()
 
 
-def acc_dense(pred, gt, thh: float = 0.5, block_mask=None):
-    """(positive, negative) accuracy at a threshold (reference
-    ``get_acc_dense``). Padded blocks count in neither numerator nor
-    denominator; an empty denominator gives accuracy 1, not nan."""
+def acc_counts(pred, gt, thh: float = 0.5, block_mask=None):
+    """(true positives, positives, true negatives, negatives) at a threshold,
+    as int64 sums. Padded blocks count in none of them. Counts add across
+    block shards where the ratios of :func:`acc_dense` do not."""
     mask = gt.bool()
     imask = ~mask
     if block_mask is not None:
         bm = block_mask.reshape((-1,) + (1,) * (gt.ndim - 1)).bool()
         mask = mask & bm
         imask = imask & bm
-    tp = ((pred > thh) & mask).sum()
-    ap = mask.sum()
-    tn = ((pred <= thh) & imask).sum()
-    an = imask.sum()
-    one = pred.new_ones(())
+    return ((pred > thh) & mask).sum(), mask.sum(), ((pred <= thh) & imask).sum(), imask.sum()
+
+
+def acc_ratios(tp, ap, tn, an):
+    """(positive, negative) accuracy from :func:`acc_counts`; an empty
+    denominator gives accuracy 1, not nan."""
+    one = torch.ones((), device=tp.device)
     return (
         torch.where(ap > 0, tp.float() / ap.clamp_min(1).float(), one),
         torch.where(an > 0, tn.float() / an.clamp_min(1).float(), one),
     )
+
+
+def acc_dense(pred, gt, thh: float = 0.5, block_mask=None):
+    """(positive, negative) accuracy at a threshold (reference
+    ``get_acc_dense``). Padded blocks count in neither numerator nor
+    denominator; an empty denominator gives accuracy 1, not nan."""
+    return acc_ratios(*acc_counts(pred, gt, thh, block_mask))
 
 
 def sse1(pred, gt, dist, thh: float, block_mask=None):

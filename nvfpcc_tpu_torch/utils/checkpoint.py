@@ -61,18 +61,24 @@ def latest_checkpoint(directory: str):
     return os.path.join(directory, max(files))
 
 
-def save_train_state(directory: str, epoch: int, state) -> str:
-    """Full resumable snapshot of a ``train.loop.TrainState``."""
+def save_train_state(directory: str, epoch: int, state, emb_state=None) -> str:
+    """Full resumable snapshot of a ``train.loop.TrainState``. ``emb_state``
+    (embeddings, their Adam moments ``exp_avg``, ``exp_avg_sq`` and step
+    count, numpy, the whole block axis) replaces the state's own: a block-DP
+    rank holds only its rows, and ``train`` gathers them first."""
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"state_{epoch:04d}.npz")
     mu, nu, count = adam_state_to_numpy(state.opt, named_params(state.net))
-    emu, enu, ecount = adam_state_to_numpy(state.emb_opt, {"emb": state.emb})
+    if emb_state is None:
+        emu, enu, ecount = adam_state_to_numpy(state.emb_opt, {"emb": state.emb})
+        emb_state = (state.emb.detach().cpu().numpy(), emu["emb"], enu["emb"], ecount)
+    emb, emu, enu, ecount = emb_state
     flat = {f"params/{k}": v for k, v in flatten_tree(params_to_numpy(state.net)).items()}
     flat.update({f"opt/exp_avg/{k}": v for k, v in mu.items()})
     flat.update({f"opt/exp_avg_sq/{k}": v for k, v in nu.items()})
     np.savez(
-        path, **flat, **{"opt/step": np.int64(count), "emb": state.emb.detach().cpu().numpy(),
-                         "emb_opt/exp_avg": emu["emb"], "emb_opt/exp_avg_sq": enu["emb"],
+        path, **flat, **{"opt/step": np.int64(count), "emb": emb,
+                         "emb_opt/exp_avg": emu, "emb_opt/exp_avg_sq": enu,
                          "emb_opt/step": np.int64(ecount), "epoch": np.int64(epoch)},
     )
     return path

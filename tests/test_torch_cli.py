@@ -2,14 +2,17 @@
 -> eval path through ``nvfpcc_tpu_torch.cli.main`` and ``serve.handle``
 from a JAX-written checkpoint, with D1 equal to the JAX ``d1_psnr``; the
 whole README workflow (grids -> train -> encode -> decode -> weights) on a
-checkpoint the port trained itself; `eval --d2`; plus the refusal of what is
-not ported.
+checkpoint the port trained itself; `eval --d2`; `train --mesh` on one CPU
+rank, which writes plain `train`'s checkpoints, and on two ranks under
+`torchrun`, which write those of the same group started in-process.
 (The grids artifact is held against the JAX package in test_torch_grids.py.)"""
 
 import argparse
 import io
 import json
 import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -104,31 +107,102 @@ def test_parser_is_flag_compatible_with_the_jax_cli():
     assert train_flags(ap) == train_flags(jax_build_parser())
 
 
-@pytest.mark.parametrize("args,item", [
-    pytest.param(["train", "c.ply", "--epochs", "3", "--mesh"], "A16", id="train"),
+@pytest.mark.parametrize("args,expect", [
+    # this case held the refusal of `train --mesh` (A16); block-DP runs now,
+    # here as one gloo rank on the CPU
+    pytest.param(["train", "toy.ply", "--epochs", "1", "--eval_every", "0", "--mesh", "--ch", "2",
+                  "--chanstr", "4,8,4,4"] + TOY, "[train] block-DP mesh over 1 devices", id="train"),
     # this case held `weights` on a ctx checkpoint, then `train --entropy_mode
     # gmm` (A12); both run now, and it holds `eval --d2` (A10), which runs
-    pytest.param(["eval", "a.ply", "b.ply", "--d2", "--depth", "6", "--platform", "cpu"], None, id="weights"),
+    pytest.param(["eval", "a.ply", "b.ply", "--d2", "--depth", "6", "--platform", "cpu"], "[eval] D2 PSNR",
+                 id="weights"),
 ])
-def test_unported_commands_exit_clearly(args, item, tmp_path, capsys):
-    """What the CLI still refuses, with its ROADMAP item, before it touches
-    the cloud: block-DP (`train --mesh`). `eval --d2` runs, through the CLI
-    and through the server (tests/test_torch_d2.py holds its numbers)."""
-    if item is None:
-        rng = np.random.default_rng(0)
-        a = np.unique(rng.integers(20, 28, (60, 3)), axis=0)
-        for name, pts in (("a.ply", a), ("b.ply", a + (0, 0, 1))):
-            write_ply_points(str(tmp_path / name), pts)
-        args = [str(tmp_path / x) if x.endswith(".ply") else x for x in args]
-        assert main(args) == 0
-        assert "[eval] D2 PSNR" in capsys.readouterr().out
-        assert handle({"cmd": args[0], "args": args[1:]}) == {"ok": True, "status": 0}
-        assert "[eval] D2 PSNR" in capsys.readouterr().err
-        return
-    with pytest.raises(SystemExit, match=f"not ported.*ROADMAP {item}"):
-        main(args)
-    r = handle({"cmd": args[0], "args": args[1:]})
-    assert r["ok"] is False and "not ported" in r["error"]
+def test_unported_commands_exit_clearly(args, expect, tmp_path, capsys):
+    """The name predates the last ports: the CLI refuses nothing the JAX CLI
+    accepts. Each former refusal runs, through the CLI and through the
+    server: `train --mesh` (tests/test_torch_parallel.py holds its
+    numbers) and `eval --d2` (tests/test_torch_d2.py holds them)."""
+    rng = np.random.default_rng(0)
+    a = np.unique(rng.integers(20, 28, (60, 3)), axis=0)
+    for name, pts in (("a.ply", a), ("b.ply", a + (0, 0, 1))):
+        write_ply_points(str(tmp_path / name), pts)
+    _toy_cloud(str(tmp_path / "toy.ply"))
+    args = [str(tmp_path / x) if x.endswith(".ply") else x for x in args]
+    if args[0] == "train":
+        args += ["--checkpoint_dir", str(tmp_path / "ckpt")]
+    assert main(args) == 0
+    assert expect in capsys.readouterr().out
+    assert handle({"cmd": args[0], "args": args[1:]}) == {"ok": True, "status": 0}
+    assert expect in capsys.readouterr().err
+
+
+def test_train_mesh_on_cpu_writes_the_plain_checkpoint(tmp_path, capsys):
+    """`train --mesh --platform cpu` runs one gloo rank: it prints the mesh
+    line and the block-DP line, and writes the checkpoints and snapshots of
+    plain `train`, array for array (world size 1 is the same arithmetic)."""
+    cloud = str(tmp_path / "toy.ply")
+    _toy_cloud(cloud)
+    flags = ["--epochs", "2", "--phase_change", "1", "--eval_every", "1", "--batchsize", "4", "--ch", "2",
+             "--chanstr", "4,8,4,4"] + TOY
+    assert main(["train", cloud, "--checkpoint_dir", str(tmp_path / "plain")] + flags) == 0
+    capsys.readouterr()
+    assert main(["train", cloud, "--checkpoint_dir", str(tmp_path / "mesh"), "--mesh"] + flags) == 0
+    out = capsys.readouterr().out
+    assert "[train] block-DP mesh over 1 devices" in out and "block-DP over 1 ranks (gloo, cpu)" in out
+    assert out.count(" TRAIN ") == 2
+    files = sorted(os.listdir(tmp_path / "plain"))
+    assert files == sorted(os.listdir(tmp_path / "mesh")) == [
+        "0000.npz", "0001.npz", "state_0000.npz", "state_0001.npz"]
+    for f in files:
+        with np.load(tmp_path / "plain" / f) as want, np.load(tmp_path / "mesh" / f) as got:
+            assert sorted(want) == sorted(got)
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=f"{f}: {k}")
+
+
+def test_train_mesh_under_torchrun_equals_run_group(tmp_path):
+    """`torchrun --nproc_per_node 2 -m nvfpcc_tpu_torch.cli train --mesh`:
+    the ranks join the group torchrun describes, rank 1 waits for rank 0's
+    grids, and the last checkpoint and snapshot equal, array for array,
+    those of a 2-rank group that ``parallel.run_group`` starts on the same
+    grids and flags."""
+    from nvfpcc_tpu_torch.cli import load_or_build_artifacts, train_job
+    from nvfpcc_tpu_torch.parallel import run_group
+    from nvfpcc_tpu_torch.train.loop import train_on_mesh
+
+    cloud = str(tmp_path / "toy.ply")
+    _toy_cloud(cloud)
+    flags = ["--epochs", "2", "--phase_change", "1", "--eval_every", "1", "--batchsize", "4", "--ch", "2",
+             "--chanstr", "4,8,4,4", "--mesh"] + TOY
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+         "-m", "nvfpcc_tpu_torch.cli", "train", cloud, "--checkpoint_dir", str(tmp_path / "torchrun")] + flags,
+        cwd=root, env={**os.environ, "OMP_NUM_THREADS": "1"}, capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.count("[train] block-DP mesh over 2 devices") == 1 and r.stdout.count(" TRAIN ") == 2
+    assert "block-DP over 2 ranks (gloo, cpu)" in r.stdout
+
+    args = build_parser().parse_args(["train", cloud, "--checkpoint_dir", str(tmp_path / "group")] + flags)
+    job = train_job(args, load_or_build_artifacts(cloud, 7, 2, torch.device("cpu")), log=lambda line: None)
+    threads = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"  # the spawned rank reads it at start
+    try:
+        run_group(train_on_mesh, 2, "gloo", ["cpu"] * 2, args=([job],), timeout_s=300)
+    finally:
+        if threads is None:
+            del os.environ["OMP_NUM_THREADS"]
+        else:
+            os.environ["OMP_NUM_THREADS"] = threads
+    files = sorted(os.listdir(tmp_path / "group"))
+    assert files == sorted(os.listdir(tmp_path / "torchrun")) == [
+        "0000.npz", "0001.npz", "state_0000.npz", "state_0001.npz"]
+    for f in files[1::2]:
+        with np.load(tmp_path / "group" / f) as want, np.load(tmp_path / "torchrun" / f) as got:
+            assert sorted(want) == sorted(got)
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=f"{f}: {k}")
 
 
 def test_train_then_encode_decode_in_one_process(tmp_path, capsys):
@@ -210,3 +284,20 @@ def test_device_platform_without_a_card_fails(tmp_path):
     r = handle({"cmd": "grids", "args": [cloud, "--depth", "7", "--level", "2"]})
     assert r["ok"] is False and "needs a CUDA device" in r["error"]
     assert not os.path.exists(tmp_path / "toy_d7_l2_grids.npz")
+
+
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_train_numerics_keep_deterministic_algorithms(deterministic):
+    """Training leaves cuDNN's algorithms free unless the caller turned on
+    deterministic algorithms, as ``chip_smoke.py`` does for the runs whose
+    checkpoints it compares bit for bit."""
+    from nvfpcc_tpu_torch.device import set_train_numerics
+
+    before = torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        set_train_numerics()
+        assert torch.backends.cudnn.deterministic is deterministic and not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.use_deterministic_algorithms(before[0])
+        torch.backends.cudnn.deterministic = before[1]

@@ -63,6 +63,8 @@ def _port_sources():
 def test_no_jax_import_in_the_port_sources():
     sources = list(_port_sources())
     assert len(sources) > 20
+    for entry in ("parallel/mesh.py", "tools/dryrun_multichip.py"):
+        assert os.path.join(ROOT, "nvfpcc_tpu_torch", entry) in sources
     for path in sources:
         with open(path) as fh:
             for line in fh:
@@ -77,3 +79,21 @@ def test_forbidden_import_pattern():
     for ok in ("import nvfpcc_tpu_torch", "from nvfpcc_tpu_torch.coder import huffman",
                "from nvfpcc_tpu_torch import codec", "import numpy as np"):
         assert not _FORBIDDEN.match(ok), ok
+
+
+def test_layer_map_names_every_subpackage():
+    """The package docstring's layer map names every top-level module and
+    subpackage of the port, every entropy mode, and the modules that
+    joined after the first slice."""
+    import pkgutil
+
+    import nvfpcc_tpu_torch
+
+    doc = nvfpcc_tpu_torch.__doc__
+    names = [m.name for m in pkgutil.iter_modules(nvfpcc_tpu_torch.__path__)]
+    assert {"parallel", "train", "kernels", "tools"} <= set(names)
+    for name in names:
+        assert f"``{name}``" in doc, name
+    for name in ("channel", "spatio", "gmm", "factorized", "ctx", "ctx_ar", "train/ctx_fit.py",
+                 "coder/ctx_coder.py", "metrics/d2.py"):
+        assert name in doc, name

@@ -16,6 +16,7 @@ import nvfpcc_tpu.cli as jax_cli
 import nvfpcc_tpu.config as jax_config
 from nvfpcc_tpu.coder import ctx_coder as jax_ctx
 from nvfpcc_tpu.coder import huffman as jax_huffman
+from nvfpcc_tpu.codec import weights as jax_weights
 from nvfpcc_tpu.coder import range_coder as jax_rc
 from nvfpcc_tpu.io import ply as jax_ply
 from nvfpcc_tpu.metrics import d2 as jax_d2
@@ -24,6 +25,7 @@ from nvfpcc_tpu.octree import partition as jax_part
 from nvfpcc_tpu.train import loop as jax_loop
 from nvfpcc_tpu.utils import seeds as jax_seeds
 from nvfpcc_tpu_torch import cli as port_cli
+from nvfpcc_tpu_torch import codec as port_codec
 from nvfpcc_tpu_torch import config as port_config
 from nvfpcc_tpu_torch.coder import ctx_coder as port_ctx
 from nvfpcc_tpu_torch.coder import huffman as port_huffman
@@ -308,3 +310,29 @@ def test_d2_numpy_helpers_equal(seed):
     je, jj = jax_d2.nn_vectors(pts, other, 20, "cpu")
     np.testing.assert_array_equal(ve, je)
     np.testing.assert_array_equal(vj, jj)
+
+
+# -------------------------------------------------------- weights, check_quantized
+
+
+@pytest.mark.parametrize("ctx", [False, True])
+def test_check_quantized_equal(ctx):
+    """On the 1/qp grid, 5e-6 off it (inside the 1e-4 tolerance on k * qp),
+    and 0.01 off it, for the channel and the ctx tree, at qp 16 and 8."""
+    from nvfpcc_tpu_torch.models import decoder as TM
+    from nvfpcc_tpu_torch.utils.params import params_to_numpy
+
+    spec = TM.build_model_spec(2, (4, 8, 4, 4), entropy_mode="ctx" if ctx else "channel")
+    rng = np.random.default_rng(3)
+    tree = params_to_numpy(TM.init_params(spec))
+    for name in TM.TRANSMITTED_KERNELS:
+        k = tree["decoder"][name]["kernel"]
+        tree["decoder"][name]["kernel"] = (k + rng.normal(0, 0.2, k.shape)).astype(np.float32)
+    for qp in (16, 8):
+        on = port_codec.quantize_residuals(tree, qp)
+        near = {**on, "decoder": {**on["decoder"], "up0": {
+            **on["decoder"]["up0"], "kernel": on["decoder"]["up0"]["kernel"] + np.float32(5e-6)}}}
+        off = {**on, "decoder": {**on["decoder"], "conv2": {
+            **on["decoder"]["conv2"], "kernel": on["decoder"]["conv2"]["kernel"] + np.float32(0.01)}}}
+        for t, want in ((tree, False), (on, True), (near, True), (off, False)):
+            assert port_codec.check_quantized(t, qp) is jax_weights.check_quantized(t, qp) is want

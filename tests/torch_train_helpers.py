@@ -1,7 +1,8 @@
 """Shared by the port's training and codec tests (tests/test_torch_losses.py,
 tests/test_torch_train.py, tests/test_torch_ctx_train.py,
-tests/test_torch_entropy_modes.py, tests/test_torch_recon_bf16.py): the toy
-training set, the JAX package's noise replayed for the port, a JAX training
+tests/test_torch_entropy_modes.py, tests/test_torch_recon_bf16.py,
+tests/test_torch_parallel.py): the toy training set, the JAX package's
+noise replayed for the port (or recorded for processes without JAX), a JAX training
 state carried into the port (and both compared as numpy), and the check
 that two packages' point sets differ only near the threshold. The model is
 the channel-mode toy unless a JAX spec is given."""
@@ -108,6 +109,21 @@ class JaxReplayNoise:
         key = self.keys[self.calls]
         self.calls += 1
         return noise_from_key(key, latent_shape, q, self.spec)
+
+
+def record_jax_noise(seed, n_blocks, batch_size, epochs, phase_change, spec=None):
+    """:class:`JaxReplayNoise`'s draws for whole epochs of an unchunked run,
+    as numpy (``torch_recorded_noise.RecordedNoise`` replays them):
+    {epoch: [one draw per batch at (batch_size, 2, 2, 2, CH), then the
+    embedding update's at (n_blocks, 2, 2, 2, CH)]}."""
+    n_batches = -(-n_blocks // batch_size)
+    src, out = JaxReplayNoise(seed, spec=spec), {}
+    for epoch in range(epochs):
+        q = 1 if epoch < phase_change else 2
+        src.start_epoch(epoch, n_batches)
+        shapes = [(batch_size, 2, 2, 2, CH)] * n_batches + [(n_blocks, 2, 2, 2, CH)]
+        out[epoch] = [{k: v.numpy() for k, v in src.draw(s, q).items()} for s in shapes]
+    return out
 
 
 def jax_state_numpy(params, opt_state, emb, emb_opt_state):
