@@ -19,6 +19,20 @@ a checkpoint and a snapshot exist and ``--resume`` runs one more epoch. It
 prints seconds per epoch for each phase, the split net steps / embedding
 update / eval (CUDA events) and the peak device memory.
 
+Then the README's workflow tools, as a user runs them, on that sphere, its
+grids and the checkpoint just trained:
+
+    encode_eval (--no_d2, the channel encode's threshold; its pack must be
+    byte-equal to the channel encode's) -> rd_sweep --lambdas 200 --epochs 1
+    --no_d2 at two thresholds that keep points (read off a 1-epoch probe),
+    then again into the same workdir (it must train nothing and give the
+    same rows; a row must equal encode_eval of the checkpoint the sweep
+    trained) -> pipeline_demo --depth 9 --level 4 --epochs 4 on the sphere it
+    synthesizes (parity, finite D1 and D2)
+
+each with its exact EDT launch count (2, 4 + 4 + 2, grids 1 of the depth-9
+probe, 5).
+
 Then the context-model path (entropy modes ctx / ctx_ar) on the same grids:
 
     train --entropy_mode ctx --emb_chunks 2 (1 epoch at q=1, 1 at q=2, bf16)
@@ -131,6 +145,9 @@ R_SCALING = ((688, 688, 688), 27)
 # (tests/test_torch_parallel.py). Then the bf16 mesh run's epochs and its
 # phase change.
 MESH_EPOCHS = 2
+# the workflow tools' phase: rd_sweep's epochs (1: the trainer snapshots every
+# 10 epochs from epoch 0, so the last epoch is resumable) and pipeline_demo's
+RD_EPOCHS, PIPELINE_EPOCHS = 1, 4
 MESH_BF16_EPOCHS, MESH_BF16_PHASE_CHANGE = 3, 2
 MESH_METRICS = ("loss", "bpp", "pacc", "nacc")
 MESH_RTOL, MESH_ATOL, MESH_SPREAD_FACTOR = 2e-4, 2e-6, 10.0
@@ -152,19 +169,30 @@ def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def run_cli(argv) -> str:
-    """Run one port CLI command in this process; echo and return its output.
-    Exceptions and non-zero exits propagate."""
-    from nvfpcc_tpu_torch.cli import main
-
+def run_tool(main, argv) -> str:
+    """Run a port entry point's ``main(argv)`` (the CLI's or a tool's) in
+    this process; echo and return its output. Exceptions, ``SystemExit``
+    included, propagate; a non-zero return fails."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         status = main(argv)
     out = buf.getvalue()
     print(out, end="", flush=True)
     if status:
-        fail(f"cli {argv[0]} returned {status}")
+        fail(f"{main.__module__} {' '.join(argv[:1])} returned {status}")
     return out
+
+
+def run_cli(argv) -> str:
+    """Run one port CLI command in this process (:func:`run_tool`)."""
+    from nvfpcc_tpu_torch.cli import main
+
+    return run_tool(main, argv)
+
+
+def last_json(out: str) -> dict:
+    """The last line of ``out`` that is a JSON object."""
+    return json.loads([line for line in out.splitlines() if line.startswith("{")][-1])
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -918,6 +946,100 @@ def phase_mesh(torch, K, w, n_points: int) -> dict:
     return {"runs": runs, "deterministic_runs": det, "check": check, "codec": codec_row}
 
 
+def phase_tools(torch, K, w, n_points: int, thh: float) -> dict:
+    """The README's workflow tools, run as a user runs them, on the channel
+    phase's sphere, grids and checkpoint: ``encode_eval`` of the channel
+    checkpoint (its pack byte-equal to the channel phase's), ``rd_sweep``
+    (one lambda, one epoch, two thresholds that keep points; a rerun into
+    its workdir trains nothing and gives the same rows; a row equal to
+    ``encode_eval`` of the sweep's checkpoint), and ``pipeline_demo`` on the
+    depth-9 sphere it synthesizes. Returns each tool's numbers and EDT
+    launches."""
+    from scripts.synth_cloud import bumpy_sphere_cloud
+    from nvfpcc_tpu_torch.cli import write_ply_points
+    from nvfpcc_tpu_torch.tools import encode_eval, pipeline_demo, rd_sweep
+    from nvfpcc_tpu_torch.tools.ctx_recipe import threshold_keeping
+
+    stats = {}
+    os.makedirs(w("tools"))
+    t = w("tools/")
+    common = ["--depth", "10", "--level", "5", "--platform", "device"]
+
+    # encode_eval: the channel checkpoint, copied so that its pack and
+    # reconstructions do not replace the channel phase's
+    shutil.copytree(w("ckpt"), t + "ckpt")
+    before, t0 = K.LAUNCHES, time.time()
+    ee = last_json(run_tool(encode_eval.main, [w("sphere.ply"), "--ckpt", t + "ckpt", "--thh", str(thh), "--no_d2",
+                                               "--platform", "device"]))
+    ee.update(seconds=time.time() - t0, launches=K.LAUNCHES - before,
+              pack_equal_to_channel_phase=same_bytes(t + "pack.pk", w("pack.pk")))
+    log("encode_eval: " + json.dumps(ee))
+    if not (ee["parity"] and ee["pack_equal_to_channel_phase"] and np.isfinite(ee["d1_psnr"]) and ee["launches"] == 2):
+        fail("encode_eval: no parity, a pack unlike the channel phase's, a D1 that is not finite, or not 2 EDT launches")
+    stats["encode_eval"] = ee
+
+    # rd_sweep: thresholds read off a probe trained as the sweep trains
+    # (lambda 200, 1 epoch: the trainer snapshots every 10 epochs from
+    # epoch 0, so the last epoch of a 1-epoch run is resumable)
+    run_cli(["train", w("sphere.ply"), *common, "--epochs", str(RD_EPOCHS), "--checkpoint_dir", t + "probe"])
+    thhs = [threshold_keeping(t + "probe", k * n_points, "cuda") for k in (1, 2)]
+    rd_args = [w("sphere.ply"), *common, "--lambdas", "200", "--thhs", ",".join(map(str, thhs)),
+               "--epochs", str(RD_EPOCHS), "--no_d2", "--workdir", t + "rd", "--out", t + "rd.jsonl"]
+    runs = []
+    for _ in range(2):
+        before, t0 = K.LAUNCHES, time.time()
+        out = run_tool(rd_sweep.main, rd_args)
+        runs.append({"seconds": time.time() - t0, "launches": K.LAUNCHES - before,
+                     "eval_lines": out.count("TEST]"), "snapshots": sorted(os.listdir(t + "rd/l200"))})
+    rows = train_rows(t + "rd.jsonl")
+    keys = ["lambda", "thh", "bpp", "b_latent", "b_net", "b_origins", "d1_psnr", "d1_mse", "n_points_rec",
+            "n_points_src", "train_s"]
+    strip = [{k: v for k, v in r.items() if k != "train_s"} for r in rows]
+    log("rd_sweep: " + json.dumps({"thhs": thhs, "runs": runs, "rows": rows}))
+    if len(rows) != 4 or any(list(r) != keys for r in rows) or strip[:2] != strip[2:]:
+        fail("rd_sweep: not 2 rows a run with the JAX script's keys, or a rerun gave other rows")
+    for r in rows:
+        if not (np.isfinite(r["d1_psnr"]) and r["n_points_rec"] > 0 and r["n_points_src"] == n_points
+                and abs(r["bpp"] - (r["b_net"] + r["b_latent"] + r["b_origins"])) < 1e-12):
+            fail(f"rd_sweep row {r}: D1 not finite, no points, or bpp != b_net + b_latent + b_origins")
+    if [r["eval_lines"] for r in runs] != [1, 0] or runs[0]["snapshots"] != runs[1]["snapshots"]:
+        fail("rd_sweep: the rerun into the same workdir trained again")
+    if [r["launches"] for r in runs] != [4, 4] or not torch.backends.cudnn.deterministic:
+        fail("rd_sweep: not 2 EDT launches a row, or the codec's numerics were not in force after it")
+    # the sweep's in-process row against a fresh encode + decode of the
+    # checkpoint it trained (the last epoch's)
+    before = K.LAUNCHES
+    check = last_json(run_tool(encode_eval.main, [w("sphere.ply"), "--ckpt", t + "rd/l200", "--thh", str(thhs[0]),
+                                                  "--no_d2", "--platform", "device"]))
+    if not (check["parity"] and check["n_points_rec"] == rows[0]["n_points_rec"]
+            and check["d1_psnr"] == round(rows[0]["d1_psnr"], 4)):
+        fail(f"rd_sweep's row {rows[0]} differs from encode_eval of its checkpoint {check}")
+    stats["rd_sweep"] = {"thhs": thhs, "runs": runs, "rows": rows[:2], "encode_eval": check,
+                         "launches": sum(r["launches"] for r in runs) + K.LAUNCHES - before}
+
+    # pipeline_demo at depth 9 (32^3 blocks) on the sphere it synthesizes;
+    # its threshold read off a probe of the epoch-0 checkpoint its encode takes
+    write_ply_points(t + "sphere9.ply", bumpy_sphere_cloud(9, radius=0.213), ascii=False)
+    d9 = ["--depth", "9", "--level", "4", "--platform", "device"]
+    before = K.LAUNCHES
+    run_cli(["train", t + "sphere9.ply", *d9, "--epochs", "1", "--checkpoint_dir", t + "probe9"])
+    with np.load(t + "sphere9_d9_l4_grids.npz") as art:
+        n9 = int(art["gt"].sum())
+    thh9 = threshold_keeping(t + "probe9", n9, "cuda")
+    probe_launches, before, t0 = K.LAUNCHES - before, K.LAUNCHES, time.time()
+    out = run_tool(pipeline_demo.main, ["--depth", "9", "--level", "4", "--epochs", str(PIPELINE_EPOCHS),
+                                        "--thh", str(thh9), "--workdir", t + "pipeline", "--platform", "device"])
+    pd = last_json(out)
+    pd.update(seconds=time.time() - t0, launches=K.LAUNCHES - before, thh=thh9, n_points_src=n9)
+    log("pipeline_demo: " + json.dumps(pd))
+    if not (pd["parity"] and np.isfinite(pd["d1_psnr"]) and np.isfinite(pd["d2_psnr"]) and pd["launches"] == 5
+            and "north star" in out):
+        fail("pipeline_demo: no parity, D1 or D2 not finite, or not 5 EDT launches (grids 1, D1 2, D2 2)")
+    stats["pipeline_demo"] = pd
+    stats["launches"] = ee["launches"] + stats["rd_sweep"]["launches"] + probe_launches + pd["launches"]
+    return stats
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workdir", default=os.path.join(ROOT, ".work", "chip_smoke"))
@@ -932,14 +1054,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     sys.path.insert(0, ROOT)
+    from nvfpcc_tpu_torch.device import card_line
     from nvfpcc_tpu_torch.kernels import edt as K
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line("cuda")
     log(f"device {kind} (count {torch.cuda.device_count()}), torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
     print(smi, flush=True)
@@ -1022,6 +1142,16 @@ def main() -> int:
     log("seconds per stage: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
     log("train: " + json.dumps(tstats))
 
+    # 4b. the workflow tools on the channel phase's sphere, grids and
+    # checkpoint; their own launch count
+    K.LAUNCHES = 0
+    t = time.time()
+    tools_stats = phase_tools(torch, K, w, len(pts), thh)
+    tools_launches = K.LAUNCHES
+    log(f"tools path: {time.time() - t:.2f} s, EDT launches {tools_launches}")
+    if tools_launches != tools_stats["launches"]:
+        fail(f"the tools phase counted {tools_stats['launches']} EDT launches of {tools_launches}")
+
     # 5. the context-model path on the same grids; its own launch count
     K.LAUNCHES = 0
     t = time.time()
@@ -1063,6 +1193,10 @@ def main() -> int:
     mesh_launches = K.LAUNCHES
     log(f"block-DP path: {time.time() - t:.2f} s, EDT launches {mesh_launches}")
     log("summary: " + json.dumps({
+        "tools": {"encode_eval": {k: tools_stats["encode_eval"][k] for k in ("encode_s", "decode_s", "bpp", "d1_psnr")},
+                  "rd_sweep": [{k: r[k] for k in ("thh", "bpp", "d1_psnr", "n_points_rec", "train_s")}
+                               for r in tools_stats["rd_sweep"]["rows"]],
+                  "pipeline_demo": {k: v for k, v in tools_stats["pipeline_demo"].items() if k.endswith("_s")}},
         "bf16": {k: bstats[k] for k in ("flip_share", "parity")} | {
             k: v["median_ms"] for k, v in bstats["warm_decode"].items()},
         "modes": {m: {k: mstats[m][k] for k in ("epoch_s", "bpp", "b_latent", "b_net", "b_origins",
@@ -1080,10 +1214,11 @@ def main() -> int:
         "route": "cuda",
         "source": "nvfpcc_tpu_torch/csrc/edt.cu",
         "replaces": "nvfpcc_tpu/ops/pallas/edt_pallas.py:157",
-        "launches": launches + ctx_launches + bf16_launches + modes_launches + d2_launches + mesh_launches,
-        "launches_by_stage": {"grids": grids_launches, "eval": eval_launches, "ctx_eval": ctx_launches,
-                              "bf16_eval": bf16_launches, "modes_eval": modes_launches, "eval_d2": d2_launches,
-                              "mesh_eval": mesh_launches},
+        "launches": launches + tools_launches + ctx_launches + bf16_launches + modes_launches + d2_launches
+        + mesh_launches,
+        "launches_by_stage": {"grids": grids_launches, "eval": eval_launches, "tools": tools_launches,
+                              "ctx_eval": ctx_launches, "bf16_eval": bf16_launches, "modes_eval": modes_launches,
+                              "eval_d2": d2_launches, "mesh_eval": mesh_launches},
         **kstats,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,8 @@ fails.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 PLATFORMS = ("default", "cpu", "device")
@@ -25,6 +27,18 @@ def resolve_device(platform: str = "default") -> torch.device:
             "(pass --platform cpu to run on the host)"
         )
     return torch.device("cuda")
+
+
+def card_line(device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints them (its first card), or ``cpu`` for
+    the host: the line a measurement is reported beside."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def set_numerics() -> None:

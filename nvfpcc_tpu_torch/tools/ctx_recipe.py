@@ -114,6 +114,7 @@ def main() -> int:
     from scripts.synth_cloud import bumpy_sphere_cloud
 
     from nvfpcc_tpu_torch.cli import main as cli
+    from nvfpcc_tpu_torch.device import card_line
     from nvfpcc_tpu_torch.io.ply import read_ply_points, write_ply_points
 
     def run(argv) -> tuple:
@@ -131,10 +132,7 @@ def main() -> int:
     shutil.rmtree(args.workdir, ignore_errors=True)
     os.makedirs(args.workdir)
     w = lambda name: os.path.join(args.workdir, name)  # noqa: E731
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line("cuda")
     report = {"card": smi, "torch": torch.__version__, "depth": args.depth, "level": args.level,
               "epochs": args.epochs, "phase_change": args.phase_change}
     t = time.time()

@@ -99,10 +99,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("edt_ab: no CUDA card", file=sys.stderr)
         return 1
+    from nvfpcc_tpu_torch.device import card_line
     from nvfpcc_tpu_torch.kernels import edt as K
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_line("cuda")
     print(smi, flush=True)
     lib_new = K.build_library()
     with open(lib_new + ".log") as f:

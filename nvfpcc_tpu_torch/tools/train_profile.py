@@ -28,7 +28,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -170,11 +169,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("train_profile needs a CUDA card", file=sys.stderr)
         return 1
+    from nvfpcc_tpu_torch.device import card_line
+
     device = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line(device)
     report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda, "cells": []}
     print(json.dumps({"card": smi}), flush=True)
     gt, dist = sphere_grids(args.workdir, device)
