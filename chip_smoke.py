@@ -60,7 +60,7 @@ latents; it prints each mode's epoch seconds, bpp split and latent table
 bits. Then ``eval --d2`` on the channel reconstruction: four EDT launches
 (two for D1, two for D2) and the host seconds of the normals.
 
-Last, block-data-parallel training (``train --mesh``) at the flagship width
+Then block-data-parallel training (``train --mesh``) at the flagship width
 on the same grids, in f32 for 2 epochs (q=1, then q=2). First the runs
 that are compared, under ``torch.use_deterministic_algorithms`` (cuDNN's
 training algorithms are otherwise free, and two free plain runs part from
@@ -93,6 +93,28 @@ epochs -> encode of the world-size-2 checkpoint -> decode in a second
 process -> eval (D1, 2 EDT launches). It prints seconds per epoch of each
 timed run (the two-rank run shares one card: no speedup), the bytes
 all-reduced per net step and the all-reduce's time per step (CUDA events).
+
+Then the repo's two root entry points, ported: ``tools/entry.py`` (the eval
+forward over 917 flagship blocks: shapes, finite values, its first 8
+blocks against the CPU's forward, timed) and ``tools/bench.py
+--timed_chunks 1`` as a user runs it (917 synthetic flagship blocks, 10
+warm-up and 10 timed bf16 epochs, a warm encode and decode; its first line
+is the card's, its last has ``bench.py``'s keys in order with finite
+values, and its parity line is there); no EDT launch on either path.
+
+Last, the real-data path on both 8i-format fixtures (``tests/fixtures/
+ref_style_vox10.ply`` and ``ref_style_vox10_v2.ply``: ascii PLY, float
+x/y/z + uchar colours; v2 has near-empty blocks and a one-voxel filament)
+at the flagship width:
+
+    grids -> train (the train phase's epochs) -> encode (a threshold read
+    off the checkpoint) -> one ``serve`` process decodes both packs ->
+    eval (D1)
+
+each pack's decode byte-equal to its encoder's cloud and not empty, each
+D1 finite, and each of the path's 6 EDT calls (grids 1, eval 2 a fixture)
+held against the plain version on the same input; then the kernel is timed
+on those inputs beside its plain version and bound.
 
 Usage, from the root of a checkout on a machine with one CUDA card:
 
@@ -149,6 +171,16 @@ MESH_EPOCHS = 2
 # 10 epochs from epoch 0, so the last epoch is resumable) and pipeline_demo's
 RD_EPOCHS, PIPELINE_EPOCHS = 1, 4
 MESH_BF16_EPOCHS, MESH_BF16_PHASE_CHANGE = 3, 2
+# the 8i-format fixtures of the real-data path (tests/fixtures), trained for
+# the train phase's epochs
+REALDATA = (("v1", "ref_style_vox10.ply"), ("v2", "ref_style_vox10_v2.ply"))
+# bench.py's last line, in its order
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "baseline_inferred", "epochs_per_dispatch", "encode_ms",
+              "decode_ms"]
+# entry's forward on the card against the CPU's, (rtol, atol) for the
+# occupancy, the net bits and the latent bit sum: f32 with TF32 off, other
+# conv algorithms and summation orders than the CPU's
+ENTRY_TOL = ((1e-4, 1e-5), (1e-5, 0.0), (1e-4, 0.0))
 MESH_METRICS = ("loss", "bpp", "pacc", "nacc")
 MESH_RTOL, MESH_ATOL, MESH_SPREAD_FACTOR = 2e-4, 2e-6, 10.0
 ADAM_B1 = 0.9  # both Adams' (train.loop.make_optimizers)
@@ -1040,6 +1072,170 @@ def phase_tools(torch, K, w, n_points: int, thh: float) -> dict:
     return stats
 
 
+def phase_entry(torch) -> dict:
+    """``tools/entry.py`` on the card: the eval forward over all 917 flagship
+    blocks (shapes, finite), timed, and its first 8 blocks against the same
+    forward on the CPU."""
+    from nvfpcc_tpu_torch.tools.entry import entry
+
+    fn, (net, emb) = entry()
+    out, net_bits, lat = fn(net, emb)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: fn(net, emb), 3)
+    if tuple(out.shape) != (917, 32, 32, 32, 1) or tuple(net_bits.shape) != (7,) or not bool(torch.isfinite(out).all()):
+        fail(f"entry: occupancy {tuple(out.shape)}, net bits {tuple(net_bits.shape)}, or a non-finite value")
+    cfn, (cnet, cemb) = entry("cpu")
+    want = [t.numpy() for t in cfn(cnet, cemb[:8])]
+    got = [t.cpu().numpy() for t in fn(net, emb[:8])]
+    errs = [float(np.abs(g - x).max()) for g, x in zip(got, want)]
+    stats = {"forward_ms": ms, "latent_bits": float(lat), "net_bits": net_bits.cpu().tolist(),
+             "max_abs_vs_cpu": dict(zip(("occupancy", "net_bits", "latent_bits"), errs))}
+    log("entry: " + json.dumps(stats))
+    for (g, x), (rtol, atol) in zip(zip(got, want), ENTRY_TOL):
+        if not np.allclose(g, x, rtol=rtol, atol=atol):
+            fail(f"entry: the card's forward differs from the CPU's beyond rtol {rtol} / atol {atol}: {errs}")
+    return stats
+
+
+def phase_bench(torch) -> dict:
+    """``tools/bench.py`` as a user runs it, with one timed chunk: its first
+    line is the card's, its last has ``bench.py``'s keys in order with
+    finite values, and the codec's parity line is there."""
+    from nvfpcc_tpu_torch.device import card_line
+    from nvfpcc_tpu_torch.tools import bench
+
+    t = time.time()
+    lines = run_tool(bench.main, ["--timed_chunks", "1"]).splitlines()
+    rows = [json.loads(line) for line in lines[1:] if line.startswith("{")]
+    last = rows[-1]
+    stats = {"seconds": time.time() - t, "last": last, "lines": rows[:-1]}
+    log("bench: " + json.dumps(stats))
+    numbers = [last[k] for k in ("value", "vs_baseline", "encode_ms", "decode_ms")]
+    if lines[0] != card_line("cuda") or list(last) != BENCH_KEYS or not all(np.isfinite(numbers)):
+        fail("bench: no card line first, another last line than bench.py's, or a value that is not finite")
+    if [r.get("parity") for r in rows if "parity" in r] != [True]:
+        fail("bench: no parity line")
+    return stats
+
+
+@contextlib.contextmanager
+def edt_held_against_plain(K, seen: list, inputs: dict):
+    """Inside the block, every EDT call that ``grids`` and ``eval`` make in
+    this process goes through the kernel (counted as usual) and its result
+    is held against the plain version on the same input, exactly; ``seen``
+    gets (shape, radius, max |kernel - plain|, seconds of the check) of each
+    call, ``inputs`` the first input of each (shape, radius)."""
+    import torch
+
+    from nvfpcc_tpu_torch.grids import builder
+    from nvfpcc_tpu_torch.metrics import d1
+
+    def checked(occ, radius):
+        got = K.squared_edt_3d(occ, radius)
+        torch.cuda.synchronize()
+        t = time.time()
+        err = int((got - K.squared_edt_3d_ref(occ, radius)).abs().max())
+        seen.append((list(occ.shape), radius, err, time.time() - t))
+        inputs.setdefault((tuple(occ.shape), radius), occ.clone())
+        if err:
+            fail(f"EDT kernel disagrees with the plain version at {tuple(occ.shape)} R={radius}")
+        return got
+
+    saved = builder.squared_edt_3d, d1.squared_edt_3d
+    builder.squared_edt_3d = d1.squared_edt_3d = checked
+    try:
+        yield
+    finally:
+        builder.squared_edt_3d, d1.squared_edt_3d = saved
+
+
+def phase_realdata(torch, K, w) -> tuple:
+    """Both 8i-format fixtures (ascii PLY, float x/y/z + uchar colours) at
+    the flagship width through the port CLI on the card: grids, a few bf16
+    epochs, encode at a threshold read off the checkpoint, both packs
+    decoded in one second process (``serve``), byte-equal to the encoder's
+    clouds and not empty, eval (a finite D1). Every EDT call of the path is
+    held against the plain version on the same input; ``grids_s`` and
+    ``eval_s`` leave the seconds of those checks out. Returns the stats and
+    the first EDT input of each (shape, radius)."""
+    from nvfpcc_tpu_torch.cli import read_ply_points
+    from nvfpcc_tpu_torch.tools.ctx_recipe import threshold_keeping
+
+    stats, edts, inputs = {}, [], {}
+
+    def without_checks(fn):
+        """(fn(), its seconds less those of the EDT checks made inside it)."""
+        t, checks = time.time(), sum(e[3] for e in edts)
+        out = fn()
+        return out, time.time() - t - (sum(e[3] for e in edts) - checks)
+
+    with edt_held_against_plain(K, edts, inputs):
+        for name, fixture in REALDATA:
+            shutil.copy(os.path.join(ROOT, "tests", "fixtures", fixture), w(f"{name}.ply"))
+            common = [w(f"{name}.ply"), "--depth", "10", "--level", "5", "--platform", "device"]
+            _, grids_s = without_checks(lambda: run_cli(["grids", *common]))
+            row = {"grids_s": grids_s}
+            with np.load(w(f"{name}_d10_l5_grids.npz")) as art:
+                per_block = art["gt"].reshape(len(art["gt"]), -1).sum(1)
+            row.update(n_blocks=len(per_block), n_points=int(per_block.sum()),
+                       points_per_block=[int(per_block.min()), int(per_block.max())])
+            t = time.time()
+            out = run_cli(["train", *common, "--epochs", str(TRAIN_EPOCHS), "--phase_change", str(PHASE_CHANGE),
+                           "--eval_every", str(EVAL_EVERY), "--checkpoint_dir", w(f"ckpt_{name}"),
+                           "--metrics", w(f"train_{name}.jsonl")])
+            rows = train_rows(w(f"train_{name}.jsonl"))
+            row.update(train_s=time.time() - t, epoch_s=epoch_seconds(out), loss=[r["loss"] for r in rows])
+            if len(rows) != TRAIN_EPOCHS or not all(np.isfinite(row["loss"])):
+                fail(f"realdata {name}: train rows {rows}")
+            row["thh"] = thh = threshold_keeping(w(f"ckpt_{name}"), row["n_points"], "cuda")
+            t = time.time()
+            out = run_cli(["encode", *common, "--load_checkpoint", w(f"ckpt_{name}"), "--pack_fn",
+                           w(f"pack_{name}.pk"), "--recon", w(f"rc_enc_{name}.ply"), "--thh", str(thh)])
+            row.update(encode_s=time.time() - t, **encode_numbers(out))
+            if row["n_points_rec"] == 0:
+                fail(f"realdata {name}: the reconstruction at thh {thh} is empty; pass a lower --thh")
+            stats[name] = row
+
+        # one second process decodes both packs
+        reqs = "".join(json.dumps({"cmd": "decode", "args": [w(f"pack_{n}.pk"), "--recon", w(f"rc_dec_{n}.ply"),
+                                                            "--platform", "device"]}) + "\n" for n, _ in REALDATA)
+        t = time.time()
+        srv = subprocess.run([sys.executable, "-m", "nvfpcc_tpu_torch.serve"], cwd=ROOT, input=reqs,
+                             capture_output=True, text=True, timeout=900)
+        stats["decode_process_s"] = time.time() - t
+        print(srv.stderr, end="")
+        replies = [json.loads(line) for line in srv.stdout.splitlines() if line.strip()]
+        if srv.returncode or replies != [{"ok": True, "status": 0}] * len(REALDATA):
+            fail(f"the decode server exited {srv.returncode} with {replies}")
+        for name, _ in REALDATA:
+            row = stats[name]
+            row["parity"] = same_bytes(w(f"rc_enc_{name}.ply"), w(f"rc_dec_{name}.ply"))
+            if not row["parity"] or len(read_ply_points(w(f"rc_dec_{name}.ply"))) == 0:
+                fail(f"realdata {name}: rc_enc != rc_dec across processes, or an empty cloud")
+            row["eval"], eval_s = without_checks(lambda: run_eval(K, w(f"{name}.ply"), w(f"rc_dec_{name}.ply")))
+            row["eval"]["eval_s"] = eval_s
+            if not np.isfinite(row["eval"]["d1_psnr"]):
+                fail(f"realdata {name}: D1 is not finite")
+            log(f"realdata {name}: " + json.dumps(row))
+    stats["edt_calls"] = edts
+    log(f"realdata EDT calls (shape, radius, max |kernel - plain|, check s): {edts}")
+    return stats, inputs
+
+
+def time_edt_inputs(K, inputs: dict) -> list:
+    """The kernel, its plain version and its bytes bound on each of the
+    real-data path's EDT inputs (run after the path's launches are read)."""
+    timed = []
+    for (shape, radius), occ in inputs.items():
+        row = {"shape": list(shape), "radius": radius, "ms": cuda_ms(lambda: K.squared_edt_3d(occ, radius), 10),
+               "plain_ms": cuda_ms(lambda: K.squared_edt_3d_ref(occ, radius), 2),
+               "bound_ms": occ.numel() * EDT_BYTES_PER_VOXEL / HBM_BYTES_PER_S * 1e3}
+        timed.append(row)
+        log(f"edt {list(shape)} R={radius} (real-data input): kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({100 * row['bound_ms'] / row['ms']:.1f}% of it)")
+    return timed
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workdir", default=os.path.join(ROOT, ".work", "chip_smoke"))
@@ -1192,6 +1388,27 @@ def main() -> int:
     mesh_stats = phase_mesh(torch, K, w, len(pts))
     mesh_launches = K.LAUNCHES
     log(f"block-DP path: {time.time() - t:.2f} s, EDT launches {mesh_launches}")
+
+    # 10. the single-card forward check and the headline bench at flagship
+    # width; neither path runs the EDT
+    K.LAUNCHES = 0
+    t = time.time()
+    entry_stats = phase_entry(torch)
+    bench_stats = phase_bench(torch)
+    log(f"entry and bench: {time.time() - t:.2f} s, EDT launches {K.LAUNCHES}")
+    if K.LAUNCHES:
+        fail("the forward check or the bench launched the EDT kernel")
+
+    # 11. the 8i-format real-data path: grids 1 and eval 2 EDT launches a fixture
+    K.LAUNCHES = 0
+    t = time.time()
+    rstats, edt_inputs = phase_realdata(torch, K, w)
+    realdata_launches = K.LAUNCHES
+    log(f"realdata path: {time.time() - t:.2f} s, EDT launches {realdata_launches}")
+    if realdata_launches != 3 * len(REALDATA) or len(rstats["edt_calls"]) != realdata_launches:
+        fail(f"the real-data path launched the EDT kernel {realdata_launches} times ({3 * len(REALDATA)} expected)")
+    kstats["realdata_timed"] = time_edt_inputs(K, edt_inputs)
+    del edt_inputs
     log("summary: " + json.dumps({
         "tools": {"encode_eval": {k: tools_stats["encode_eval"][k] for k in ("encode_s", "decode_s", "bpp", "d1_psnr")},
                   "rd_sweep": [{k: r[k] for k in ("thh", "bpp", "d1_psnr", "n_points_rec", "train_s")}
@@ -1205,6 +1422,11 @@ def main() -> int:
         "d2": d2,
         "mesh": {k: {kk: v[kk] for kk in ("epoch_s", "bytes_per_step", "allreduce_ms_median") if kk in v}
                  for k, v in mesh_stats["runs"].items()},
+        "entry_forward_ms": entry_stats["forward_ms"],
+        "bench": bench_stats["last"],
+        "realdata": {n: {k: rstats[n][k] for k in ("n_blocks", "thh", "bpp", "n_points_rec", "parity", "grids_s",
+                                                   "train_s", "encode_s")} | {"d1_psnr": rstats[n]["eval"]["d1_psnr"]}
+                     for n, _ in REALDATA},
     }))
     shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"total {time.time() - t_start:.1f} s")
@@ -1215,10 +1437,10 @@ def main() -> int:
         "source": "nvfpcc_tpu_torch/csrc/edt.cu",
         "replaces": "nvfpcc_tpu/ops/pallas/edt_pallas.py:157",
         "launches": launches + tools_launches + ctx_launches + bf16_launches + modes_launches + d2_launches
-        + mesh_launches,
+        + mesh_launches + realdata_launches,
         "launches_by_stage": {"grids": grids_launches, "eval": eval_launches, "tools": tools_launches,
                               "ctx_eval": ctx_launches, "bf16_eval": bf16_launches, "modes_eval": modes_launches,
-                              "eval_d2": d2_launches, "mesh_eval": mesh_launches},
+                              "eval_d2": d2_launches, "mesh_eval": mesh_launches, "realdata": realdata_launches},
         **kstats,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -30,9 +30,11 @@ mirrors the reference package's layout so each module has a counterpart:
 - ``tools``    — the README's workflow scripts (``rd_sweep``: bpp against D1
   over lambda x threshold; ``encode_eval``: re-encode and score a
   checkpoint; ``pipeline_demo``: grids -> train -> encode -> decode in one
-  warm process against the 10-minute target), measurement scripts for the
-  card (EDT kernel A/B, where a training epoch's time goes, the sphere and
-  ctx recipes) and the CPU block-DP dry run.
+  warm process against the 10-minute target), the repo's headline bench
+  (``bench``: the flagship training epoch, warm encode and decode) and
+  single-card forward check (``entry``), measurement scripts for the card
+  (EDT kernel A/B, where a training epoch's time goes, the ctx recipe) and
+  the CPU block-DP dry run.
 - ``coder``, ``octree``, ``io``, ``config``, ``utils.seeds`` — copies of the
   JAX package's jax-free format modules (range coder, Huffman, the context
   coder ``coder/ctx_coder.py``, octree, PLY, configs, the seed stream), held

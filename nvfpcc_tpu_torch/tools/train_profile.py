@@ -1,7 +1,8 @@
 """Where a training epoch's time goes, on one CUDA card.
 
-Builds (or loads) the grids of the synthetic vox10 sphere and, at the
-flagship width (ch=3, chanstr 8,16,8,8, batch 16), measures for each
+Builds (or loads) the grids of the synthetic vox10 sphere, or with
+``--grids flagship`` takes the 917 synthetic blocks of ``tools/bench.py``,
+and, at the flagship width (ch=3, chanstr 8,16,8,8, batch 16), measures for each
 compute dtype and each cuDNN setting named below:
 
 - seconds per epoch (host clock around an epoch that ends in a fetch), the
@@ -18,6 +19,7 @@ cuDNN settings compared, in turns within this one process:
 benchmark on). TF32 is off throughout.
 
     python -m nvfpcc_tpu_torch.tools.train_profile --out .work/train_profile.json
+    python -m nvfpcc_tpu_torch.tools.train_profile --grids flagship --dtypes bf16 --cudnn free
 
 One JSON line per measurement on stdout; the whole report goes to ``--out``.
 """
@@ -161,6 +163,8 @@ def main() -> int:
     ap.add_argument("--epochs", type=int, default=3, help="timed epochs per cell, after one warm-up")
     ap.add_argument("--dtypes", default="bf16,f32")
     ap.add_argument("--cudnn", default="free,deterministic,benchmark")
+    ap.add_argument("--grids", choices=("sphere", "flagship"), default="sphere",
+                    help="flagship: tools/bench.py's 917 synthetic blocks instead of the vox10 sphere")
     args = ap.parse_args()
 
     import torch
@@ -175,7 +179,13 @@ def main() -> int:
     smi = card_line(device)
     report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda, "cells": []}
     print(json.dumps({"card": smi}), flush=True)
-    gt, dist = sphere_grids(args.workdir, device)
+    if args.grids == "flagship":
+        from nvfpcc_tpu_torch.tools.bench import synthetic_flagship_grids
+
+        gt, dist = synthetic_flagship_grids()
+    else:
+        gt, dist = sphere_grids(args.workdir, device)
+    report["grids"] = args.grids
     report["n_blocks"] = int(gt.shape[0])
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

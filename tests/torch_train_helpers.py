@@ -1,11 +1,15 @@
 """Shared by the port's training and codec tests (tests/test_torch_losses.py,
 tests/test_torch_train.py, tests/test_torch_ctx_train.py,
 tests/test_torch_entropy_modes.py, tests/test_torch_recon_bf16.py,
-tests/test_torch_parallel.py): the toy training set, the JAX package's
-noise replayed for the port (or recorded for processes without JAX), a JAX training
-state carried into the port (and both compared as numpy), and the check
-that two packages' point sets differ only near the threshold. The model is
-the channel-mode toy unless a JAX spec is given."""
+tests/test_torch_parallel.py, tests/test_torch_realdata*.py): the toy
+training set, the JAX package's noise replayed for the port (or recorded
+for processes without JAX), a JAX training state carried into the port
+(and both compared as numpy), the check that two packages' point sets
+differ only near the threshold, and a real-data fixture through the port
+CLI. The model is the channel-mode toy unless a JAX spec is given."""
+
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -223,3 +227,74 @@ def assert_only_band_differs(a, b, pack, band):
         o = tuple((p // bsz) * bsz)
         v = p - np.asarray(o)
         assert abs(occ[block_of[o], v[0], v[1], v[2]] - thh) < band, p
+
+
+def fixture_path(fixture: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", fixture)
+
+
+def realdata_pipeline(workdir, fixture: str, thh: str):
+    """A ``tests/fixtures`` cloud through the port CLI's whole path on the
+    CPU (grids -> train -> encode -> decode -> eval) at the JAX
+    real-data test's settings (``tests/test_real_data_readiness.py``: ch 2,
+    chanstr 4,8,4,4, 8 epochs, phase change 3, batch 4, eval every 4) and
+    the decode threshold ``thh``: each step's exit status and output, the
+    paths, and the grids npz."""
+    import contextlib
+    import io
+    import shutil
+    import types
+
+    from nvfpcc_tpu_torch.cli import artifact_path, main as cli_main
+
+    d = str(workdir)
+    cloud = os.path.join(d, fixture)
+    shutil.copy(fixture_path(fixture), cloud)
+    r = types.SimpleNamespace(cloud=cloud, thh=thh, **{k: os.path.join(d, f) for k, f in (
+        ("ckpt", "ckpts"), ("pack", "pack.pk"), ("rc_enc", "rc_enc.ply"), ("rc_dec", "rc_dec.ply"))},
+        rcs={}, out={})
+    common = ["--depth", "10", "--level", "5", "--platform", "cpu"]
+    small = ["--ch", str(CH), "--chanstr", CHANSTR]
+    steps = {
+        "grids": ["grids", cloud, *common],
+        "train": ["train", cloud, *common, *small, "--epochs", "8", "--phase_change", "3", "--batchsize", "4",
+                  "--checkpoint_dir", r.ckpt, "--eval_every", "4"],
+        "encode": ["encode", cloud, *common, *small, "--load_checkpoint", r.ckpt, "--pack_fn", r.pack,
+                   "--recon", r.rc_enc, "--thh", thh],
+        "decode": ["decode", r.pack, "--recon", r.rc_dec, "--platform", "cpu"],
+        "eval": ["eval", cloud, r.rc_dec, *common],
+    }
+    for step, argv in steps.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            r.rcs[step] = cli_main(argv)
+        r.out[step] = buf.getvalue()
+    with np.load(artifact_path(cloud, 10, 5)) as art:
+        r.art = {k: art[k] for k in ("origins", "gt", "dist")}
+    return r
+
+
+def assert_fixture_reads_alike(fixture: str) -> np.ndarray:
+    """Both packages' PLY readers give the fixture the same points; returns them."""
+    from nvfpcc_tpu.io.ply import read_ply_points as jax_read_ply_points
+    from nvfpcc_tpu_torch.io.ply import read_ply_points
+
+    pts = read_ply_points(fixture_path(fixture))
+    assert np.array_equal(pts, jax_read_ply_points(fixture_path(fixture)))
+    return pts
+
+
+def assert_round_trip(run) -> None:
+    """Every step of ``realdata_pipeline`` exited 0, ``rc_enc == rc_dec``
+    byte for byte, and the reconstruction holds points."""
+    from nvfpcc_tpu_torch.io.ply import read_ply_points
+
+    assert run.rcs == {"grids": 0, "train": 0, "encode": 0, "decode": 0, "eval": 0}
+    with open(run.rc_enc, "rb") as a, open(run.rc_dec, "rb") as b:
+        assert a.read() == b.read(), "rc_enc != rc_dec"
+    assert len(read_ply_points(run.rc_dec)) > 0, f"empty reconstruction at thh {run.thh}"
+
+
+def assert_finite_d1(run) -> None:
+    m = re.search(r"D1 PSNR ([-\w.]+) dB", run.out["eval"])
+    assert m and np.isfinite(float(m[1])), run.out["eval"]
