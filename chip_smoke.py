@@ -19,6 +19,23 @@ a checkpoint and a snapshot exist and ``--resume`` runs one more epoch. It
 prints seconds per epoch for each phase, the split net steps / embedding
 update / eval (CUDA events) and the peak device memory.
 
+Then CUDA graphs against eager on the sphere's grids at flagship width in
+bf16, under ``torch.use_deterministic_algorithms``: ``train`` with
+``graphs=True`` (the gradients of the net step and of the embedding
+update captured once a q phase and replayed, each followed by its Adam
+step, as the trainer runs on the card) and with
+``graphs=False`` (the same steps launched one kernel at a time) from the
+same init, for 2 epochs at q=1 and 2 at q=2 (eval every 2), for 2 epochs
+with the embedding update in 2 chunks, and for 2 epochs in the ctx mode
+(whose q=2 step draws no noise); every parameter, the embeddings, both
+Adams' moments and steps, every metric row and the metrics lines must be
+equal bit for bit. Then the ctx_post fit (ctx_ar, hidden 32, tail 24) of
+the ctx run's latents with graphs and eager, one 250-step chunk a phase:
+the fitted trees equal bit for bit. It prints both ways' epoch seconds,
+the fit's steps per second, and, with cuDNN free, the net steps' device
+kernels and host launch calls per step and the device's busy share (10
+steps on 160 of the blocks).
+
 Then the README's workflow tools, as a user runs them, on that sphere, its
 grids and the checkpoint just trained:
 
@@ -98,9 +115,11 @@ Then the repo's two root entry points, ported: ``tools/entry.py`` (the eval
 forward over 917 flagship blocks: shapes, finite values, its first 8
 blocks against the CPU's forward, timed) and ``tools/bench.py
 --timed_chunks 1`` as a user runs it (917 synthetic flagship blocks, 10
-warm-up and 10 timed bf16 epochs, a warm encode and decode; its first line
-is the card's, its last has ``bench.py``'s keys in order with finite
-values, and its parity line is there); no EDT launch on either path.
+warm-up and 10 timed bf16 epochs, a chunk of 10 replayed as CUDA graphs
+with one fetch, then a warm encode and decode; its first line is the
+card's, its last has ``bench.py``'s keys in order with finite values and
+``epochs_per_dispatch`` 10, and its parity line is there); no EDT launch
+on either path.
 
 Last, the real-data path on both 8i-format fixtures (``tests/fixtures/
 ref_style_vox10.ply`` and ``ref_style_vox10_v2.ply``: ascii PLY, float
@@ -177,6 +196,15 @@ REALDATA = (("v1", "ref_style_vox10.ply"), ("v2", "ref_style_vox10_v2.ply"))
 # bench.py's last line, in its order
 BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "baseline_inferred", "epochs_per_dispatch", "encode_ms",
               "decode_ms"]
+# the graphs phase: train with CUDA graphs and eager from one init, per run
+# (entropy mode, emb_chunks, epochs, phase change, eval_every); then the
+# ctx_post fit both ways, one 250-step chunk a phase
+GRAPH_RUNS = (("channel", 1, 4, 2, 2), ("channel", 2, 2, 1, 0), ("ctx", 1, 2, 1, 0))
+GRAPH_FIT = dict(steps=250, finetune_steps=250, early_stop=0.0)
+# the launch profile's blocks: 10 net steps of 16 (a step's kernels and
+# launches do not depend on how many blocks the epoch has; the profiler's
+# bookkeeping grows with the events it records)
+LAUNCH_PROFILE_BLOCKS = 160
 # entry's forward on the card against the CPU's, (rtol, atol) for the
 # occupancy, the net bits and the latent bit sum: f32 with TF32 off, other
 # conv algorithms and summation orders than the CPU's
@@ -1072,6 +1100,139 @@ def phase_tools(torch, K, w, n_points: int, thh: float) -> dict:
     return stats
 
 
+def bits_equal(a: dict, b: dict) -> list:
+    """The keys of two dicts of numpy arrays whose bytes differ (or that one lacks)."""
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b or a[k].shape != b[k].shape or a[k].tobytes() != b[k].tobytes())
+
+
+def graph_train_run(torch, gt, dist, mcfg, cfg, graphs: bool, metrics_path: str) -> dict:
+    """``train`` on the card from its init with CUDA graphs or eager: the
+    state as numpy (every parameter, the embeddings, both Adams' moments
+    and steps), every epoch's metric rows (recorded as ``train`` gets them
+    from ``run_epoch``), the metrics lines, the log's epoch seconds and the
+    run's seconds."""
+    from nvfpcc_tpu_torch.train import loop as TT
+    from nvfpcc_tpu_torch.utils.params import adam_state_to_numpy, flatten_tree, named_params, params_to_numpy
+
+    rows, real = [], TT.run_epoch
+
+    def recording(*a, **k):
+        rows.append(real(*a, **k))
+        return rows[-1]
+
+    lines = []
+    TT.run_epoch = recording
+    try:
+        torch.cuda.synchronize()
+        t = time.time()
+        _, state = TT.train(gt, dist, mcfg, cfg, "cuda", log=lines.append, metrics_path=metrics_path,
+                            graphs=graphs)
+        torch.cuda.synchronize()
+        secs = time.time() - t
+    finally:
+        TT.run_epoch = real
+    arrays = {f"params/{k}": v for k, v in flatten_tree(params_to_numpy(state.net)).items()}
+    arrays["emb"] = state.emb.detach().cpu().numpy()
+    for name, opt, named in (("opt", state.opt, named_params(state.net)), ("emb_opt", state.emb_opt, {"emb": state.emb})):
+        mu, nu, count = adam_state_to_numpy(opt, named)
+        arrays.update({f"{name}/mu/{k}": v for k, v in mu.items()})
+        arrays.update({f"{name}/nu/{k}": v for k, v in nu.items()})
+        arrays[f"{name}/step"] = np.asarray(count)
+    arrays["metric_rows"] = torch.stack(rows).cpu().numpy()
+    with open(metrics_path) as f:
+        metric_lines = f.read().splitlines()
+    return {"arrays": arrays, "metric_lines": metric_lines, "epoch_s": epoch_seconds("\n".join(lines)),
+            "train_s": secs, "state": state}
+
+
+def launch_profile(torch, gt, dist, graphs: bool) -> dict:
+    """A q=2 epoch's net steps at flagship width in bf16 (cuDNN free), after
+    one warm epoch (which captures the graphs): CUDA-event milliseconds,
+    and under ``torch.profiler`` the device's busy share, the kernels the
+    device ran and the host's launch calls per net step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nvfpcc_tpu_torch.tools.train_profile import EpochRunner, event_ms, kernel_table
+
+    run = EpochRunner(gt, dist, "bf16", torch.device("cuda"), graphs=graphs)
+    run.whole_epoch(2)
+    ms = event_ms(lambda: run.net_steps(2))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run.net_steps(2)
+        torch.cuda.synchronize()
+    dev_us, kernels, _, calls = kernel_table(prof)
+    n = run.n_batches
+    return {"net_steps_ms": ms, "net_step_ms": ms / n,
+            "device_busy_share": dev_us / 1e3 / ms,
+            "device_kernels_per_step": kernels / n, "host_launch_calls_per_step": calls / n}
+
+
+def phase_graphs(torch, w, n_blocks: int) -> dict:
+    """CUDA graphs against eager on the sphere's grids at flagship width, in
+    bf16, under deterministic algorithms: ``train(graphs=True)`` and
+    ``train(graphs=False)`` from the same init (GRAPH_RUNS), every parameter,
+    the embeddings, both Adams and every metric row equal bit for bit; then
+    the ctx_post fit of the ctx run's latents both ways (one 250-step chunk
+    a phase), the fitted tree equal bit for bit. With cuDNN free, the net
+    steps' launches and device busy share both ways, on the sphere's first
+    LAUNCH_PROFILE_BLOCKS blocks."""
+    from nvfpcc_tpu_torch.config import ModelConfig, TrainConfig
+    from nvfpcc_tpu_torch.models import decoder as M
+    from nvfpcc_tpu_torch.train import ctx_fit as TF
+    from nvfpcc_tpu_torch.utils.params import flatten_tree, params_to_numpy
+
+    with np.load(w("sphere_d10_l5_grids.npz")) as art:
+        gt, dist = art["gt"], art["dist"]
+    if len(gt) != n_blocks:
+        fail(f"the graphs phase read {len(gt)} blocks, not the sphere's {n_blocks}")
+    stats, ctx_state = {}, None
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode, chunks, epochs, phase_change, eval_every in GRAPH_RUNS:
+            name = f"{mode}_emb_chunks{chunks}"
+            mcfg = ModelConfig(entropy_mode=mode)
+            cfg = TrainConfig(epochs=epochs, phase_change=phase_change, eval_every=eval_every, emb_chunks=chunks)
+            runs = {g: graph_train_run(torch, gt, dist, mcfg, cfg, g, w(f"graphs_{name}_{g}.jsonl"))
+                    for g in (True, False)}
+            differ = bits_equal(runs[True]["arrays"], runs[False]["arrays"])
+            same_lines = runs[True]["metric_lines"] == runs[False]["metric_lines"]
+            stats[name] = {"epochs": epochs, "phase_change": phase_change, "compared": len(runs[True]["arrays"]),
+                           "differ": differ, "metric_lines_equal": same_lines,
+                           **{f"{k}_{'graphs' if g else 'eager'}": runs[g][k]
+                              for g in (True, False) for k in ("train_s", "epoch_s")}}
+            log(f"graphs {name}: " + json.dumps(stats[name]))
+            if differ or not same_lines:
+                fail(f"graph-replayed training differs from eager ({name}): {differ[:8]}, "
+                     f"metrics lines equal {same_lines}")
+            if mode == "ctx":
+                ctx_state = runs[True]["state"]
+            del runs
+        spec = M.build_model_spec(3, (8, 16, 8, 8), entropy_mode="ctx_ar", ctx_hidden=32, ctx_tail=24)
+        params = params_to_numpy(ctx_state.net)
+        lat = TF.latents_from_checkpoint(spec, params, ctx_state.emb.detach().cpu().numpy(), "cuda")
+        fits = {}
+        for g in (True, False):
+            fit_log = []
+            tree = TF.fit_ctx_predictor(spec, lat, "cuda", wrate=params["decoder"]["wrate"], log=fit_log.append,
+                                        graphs=g, **GRAPH_FIT)
+            rate = float(fit_log[-1].split("(")[-1].split(" steps/s")[0])
+            fits[g] = (flatten_tree(tree), rate)
+        differ = bits_equal(fits[True][0], fits[False][0])
+        stats["ctx_fit"] = {"steps_per_s_graphs": fits[True][1], "steps_per_s_eager": fits[False][1],
+                            "n_blocks": len(lat), "differ": differ}
+        log("graphs ctx_fit: " + json.dumps(stats["ctx_fit"]))
+        if differ:
+            fail(f"the graph-replayed ctx fit differs from eager: {differ}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for g in (True, False):
+        n = LAUNCH_PROFILE_BLOCKS
+        stats[f"launches_{'graphs' if g else 'eager'}"] = launch_profile(torch, gt[:n], dist[:n], g)
+    log("graphs launches per net step: " + json.dumps({k: stats[k] for k in ("launches_graphs", "launches_eager")}))
+    return stats
+
+
 def phase_entry(torch) -> dict:
     """``tools/entry.py`` on the card: the eval forward over all 917 flagship
     blocks (shapes, finite), timed, and its first 8 blocks against the same
@@ -1113,6 +1274,8 @@ def phase_bench(torch) -> dict:
     numbers = [last[k] for k in ("value", "vs_baseline", "encode_ms", "decode_ms")]
     if lines[0] != card_line("cuda") or list(last) != BENCH_KEYS or not all(np.isfinite(numbers)):
         fail("bench: no card line first, another last line than bench.py's, or a value that is not finite")
+    if last["epochs_per_dispatch"] != bench.EPOCHS_PER_DISPATCH:
+        fail(f"bench: {last['epochs_per_dispatch']} epochs a dispatch, not bench.py's {bench.EPOCHS_PER_DISPATCH}")
     if [r.get("parity") for r in rows if "parity" in r] != [True]:
         fail("bench: no parity line")
     return stats
@@ -1338,6 +1501,14 @@ def main() -> int:
     log("seconds per stage: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
     log("train: " + json.dumps(tstats))
 
+    # 4a. CUDA-graph training and the ctx fit against eager; no EDT launch
+    K.LAUNCHES = 0
+    t = time.time()
+    gstats = phase_graphs(torch, w, len(origins))
+    log(f"graphs path: {time.time() - t:.2f} s, EDT launches {K.LAUNCHES}")
+    if K.LAUNCHES:
+        fail("the graphs phase launched the EDT kernel")
+
     # 4b. the workflow tools on the channel phase's sphere, grids and
     # checkpoint; their own launch count
     K.LAUNCHES = 0
@@ -1422,6 +1593,8 @@ def main() -> int:
         "d2": d2,
         "mesh": {k: {kk: v[kk] for kk in ("epoch_s", "bytes_per_step", "allreduce_ms_median") if kk in v}
                  for k, v in mesh_stats["runs"].items()},
+        "graphs": {k: ({kk: vv for kk, vv in v.items() if kk != "differ"} if isinstance(v, dict) else v)
+                   for k, v in gstats.items()},
         "entry_forward_ms": entry_stats["forward_ms"],
         "bench": bench_stats["last"],
         "realdata": {n: {k: rstats[n][k] for k in ("n_blocks", "thh", "bpp", "n_points_rec", "parity", "grids_s",

@@ -10,10 +10,13 @@ The setup is ``bench.py:main``'s with the port's pieces: ``ModelConfig()``,
 ``TrainConfig(batch_size=16)``, zero-residual params, ones embeddings, both
 Adams, an all-ones block mask, ``NoiseSource(0, ...)``, q=2 throughout, and
 for every epoch the batch plan of epoch 0 with epoch numbers 0..9 inside
-each chunk of ten. ``bench.py`` scans a chunk of ten epochs inside one
-program (``make_epochs_fn``), a TPU workaround the port does not carry: here
-each epoch is one ``train.loop.run_epoch`` followed by the host fetch of its
-metric rows, as ``train`` runs it, so ``epochs_per_dispatch`` is 1. One
+each chunk of ten. ``bench.py`` runs a chunk of ten epochs as one compiled
+program (``make_epochs_fn``); here a chunk runs as ``train`` runs one: ten
+``train.loop.run_epoch`` calls on one ``EpochProgram`` (on the card the
+gradients of its net step and embedding update are CUDA graphs, captured in
+the warm-up chunk and replayed), then one host fetch of the chunk's metric
+rows and the check
+that they are finite, so ``epochs_per_dispatch`` is ten, bench.py's. One
 warm-up chunk, then ``--timed_chunks`` timed chunks; the value is their
 wall time over the timed epochs.
 
@@ -125,9 +128,10 @@ def codec_latency(mcfg, params: dict, emb: np.ndarray, device) -> tuple:
 def run_bench(device, timed_chunks: int = TIMED_CHUNKS, *, n_blocks: int = N_BLOCKS,
               chunk_epochs: int = EPOCHS_PER_DISPATCH, log=print) -> dict:
     """Train ``WARMUP_EPOCHS`` then ``timed_chunks`` chunks of
-    ``chunk_epochs`` epochs on ``n_blocks`` synthetic flagship blocks, time
-    the codec on the trained state; log the lines between the card line and
-    the last, and return the last line's dict."""
+    ``chunk_epochs`` epochs (each chunk one fetch, as ``train`` runs one) on
+    ``n_blocks`` synthetic flagship blocks, time the codec on the trained
+    state; log the lines between the card line and the last, and return the
+    last line's dict."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     gt, dist = synthetic_flagship_grids(n_blocks=n_blocks)
@@ -147,15 +151,17 @@ def run_bench(device, timed_chunks: int = TIMED_CHUNKS, *, n_blocks: int = N_BLO
     block_valid = torch.ones(n_blocks, device=device)
     noise = T.NoiseSource(0, spec, device)
     idx, mask = T.batch_plan(n_blocks, cfg.batch_size, cfg.shuffle, cfg.seed, 0)
-    idx_d, mask_d = torch.as_tensor(idx, device=device).long(), torch.as_tensor(mask, device=device)
+    idx, mask = torch.from_numpy(idx).long(), torch.from_numpy(mask)
+    program = T.EpochProgram(state, cfg, gt_d, dist_d, block_valid, n_total_pts, noise, graphs=cuda)
 
     def run_chunk():
-        for epoch in range(chunk_epochs):
-            rows = T.run_epoch(state, cfg, gt_d, dist_d, idx_d, mask_d, block_valid, n_total_pts, 2, noise,
-                               epoch).cpu().numpy()
-            if not np.isfinite(rows).all():
-                bad = sorted({T.METRIC_KEYS[j] for j in np.argwhere(~np.isfinite(rows))[:, 1]})
-                raise SystemExit(f"[bench] non-finite metrics {bad} at epoch {epoch} of a chunk")
+        rows = [T.run_epoch(state, cfg, gt_d, dist_d, idx, mask, block_valid, n_total_pts, 2, noise, epoch,
+                            program=program) for epoch in range(chunk_epochs)]
+        rows = torch.stack(rows).cpu().numpy()  # the chunk's one fetch
+        if not np.isfinite(rows).all():
+            epoch = np.argwhere(~np.isfinite(rows))[0, 0]
+            bad = sorted({T.METRIC_KEYS[j] for j in np.argwhere(~np.isfinite(rows[epoch]))[:, 1]})
+            raise SystemExit(f"[bench] non-finite metrics {bad} at epoch {epoch} of a chunk")
 
     for _ in range(WARMUP_EPOCHS):
         run_chunk()
@@ -182,7 +188,7 @@ def run_bench(device, timed_chunks: int = TIMED_CHUNKS, *, n_blocks: int = N_BLO
         # the denominator is the 24 s/epoch the north-star arithmetic
         # implies, not a measured reference timing (it publishes none)
         "baseline_inferred": True,
-        "epochs_per_dispatch": 1,
+        "epochs_per_dispatch": chunk_epochs,
         "encode_ms": round(encode_ms, 2),
         "decode_ms": round(decode_ms, 2),
     }

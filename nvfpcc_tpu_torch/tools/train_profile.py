@@ -16,7 +16,14 @@ compute dtype and each cuDNN setting named below:
 cuDNN settings compared, in turns within this one process:
 ``free`` (deterministic off, benchmark off), ``deterministic``
 (deterministic on, benchmark off), ``benchmark`` (deterministic off,
-benchmark on). TF32 is off throughout.
+benchmark on). TF32 is off throughout. Each cell runs both paths of the
+trainer's epoch (``train.loop.EpochProgram``): ``graphs`` (the gradients
+of the net step and of the embedding update replayed as CUDA graphs, each
+followed by its Adam step, as ``train`` runs them on the card) and
+``eager`` (the same steps launched kernel by kernel); for each,
+the profiled q=2 parts also give the host's launch calls (kernel launches,
+graph launches, copies and fills) and the kernels the device ran, per net
+step.
 
     python -m nvfpcc_tpu_torch.tools.train_profile --out .work/train_profile.json
     python -m nvfpcc_tpu_torch.tools.train_profile --grids flagship --dtypes bf16 --cudnn free
@@ -29,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import sys
 import time
@@ -78,9 +86,15 @@ def peak_of(fn):
     return out, torch.cuda.max_memory_allocated() - base
 
 
+# the CUDA API calls (cuda* and cu*) that put work on the device, as the
+# profiler names them on the host side
+LAUNCH_CALLS = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|GraphLaunch|Memcpy|Memset)")
+
+
 def kernel_table(prof, top: int = 8):
     """(device microseconds in all kernels and copies, their number, the
-    ``top`` of them by device time) from the profiler's device-side rows."""
+    ``top`` of them by device time, the host's launch calls) from the
+    profiler's rows (the kernels a CUDA graph replays have rows of their own)."""
     from torch.autograd import DeviceType
 
     # "Optimizer.step#..." rows are the profiler's own annotation of a span
@@ -90,18 +104,20 @@ def kernel_table(prof, top: int = 8):
             and not e.key.startswith("Optimizer.step#")]
     if not rows:
         raise RuntimeError("torch.profiler recorded no device time")
+    calls = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CPU and LAUNCH_CALLS.match(e.key))
     total = sum(r[1] for r in rows)
     launches = sum(r[2] for r in rows)
     rows.sort(key=lambda r: -r[1])
     return total, launches, [
         {"kernel": k[:90], "us": us, "calls": n, "share": us / total} for k, us, n in rows[:top]
-    ]
+    ], calls
 
 
 class EpochRunner:
-    """One training state at the flagship width and the pieces of its epoch."""
+    """One training state at the flagship width and the pieces of its epoch,
+    on one ``EpochProgram`` (with CUDA graphs or eager)."""
 
-    def __init__(self, gt, dist, compute_dtype: str, device):
+    def __init__(self, gt, dist, compute_dtype: str, device, graphs: bool = False):
         import torch
 
         from nvfpcc_tpu_torch.config import ModelConfig, TrainConfig
@@ -121,23 +137,25 @@ class EpochRunner:
         self.gt, self.dist = T._prep_dense(gt, dist, device)
         self.valid = torch.ones(self.n, device=device)
         self.noise = T.NoiseSource(0, spec, device)
-        self.device = device
+        self.program = T.EpochProgram(self.state, self.cfg, self.gt, self.dist, self.valid, self.n_pts,
+                                      self.noise, graphs=graphs)
         self.epoch = 0
 
     def plan(self):
         idx, mask = self.T.batch_plan(self.n, self.cfg.batch_size, "stride", 0, self.epoch)
-        dev = self.device
-        return self.torch.as_tensor(idx, device=dev).long(), self.torch.as_tensor(mask, device=dev)
+        return self.torch.from_numpy(idx).long(), self.torch.from_numpy(mask)
+
+    @property
+    def n_batches(self) -> int:
+        return -(-self.n // self.cfg.batch_size)
 
     def net_steps(self, q):
         idx, mask = self.plan()
         self.noise.start_epoch(self.epoch, idx.shape[0])
-        return self.T.net_steps(self.state, self.cfg, self.gt, self.dist, idx, mask, self.n_pts, q,
-                                self.noise, self.epoch)
+        self.program.net_steps(self.epoch, q, idx, mask)
 
     def emb_update(self, q):
-        self.T.emb_update(self.state, self.cfg, self.gt, self.dist, self.valid, self.n_pts, q,
-                          self.noise, self.epoch)
+        self.program.emb_update(self.epoch, q)
 
     def evaluate(self):
         return self.T.evaluate(self.state.net, self.cfg, self.state.emb, self.gt, self.dist,
@@ -148,7 +166,7 @@ class EpochRunner:
         t0 = time.time()
         idx, mask = self.plan()
         rows = self.T.run_epoch(self.state, self.cfg, self.gt, self.dist, idx, mask, self.valid,
-                                self.n_pts, q, self.noise, self.epoch)
+                                self.n_pts, q, self.noise, self.epoch, program=self.program)
         rows = rows.cpu().numpy()
         self.epoch += 1
         if not np.isfinite(rows).all():
@@ -192,44 +210,49 @@ def main() -> int:
 
     for cd in args.dtypes.split(","):
         for name in args.cudnn.split(","):
-            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = CUDNN[name]
-            run = EpochRunner(gt, dist, cd, device)
-            cell = {"compute_dtype": cd, "cudnn": name}
-            for q in (1, 2):
-                warm = run.whole_epoch(q)
-                secs = [run.whole_epoch(q) for _ in range(args.epochs)]
-                rows, net_peak = peak_of(lambda: run.net_steps(q))
-                net_ms = event_ms(lambda: run.net_steps(q))
-                _, emb_peak = peak_of(lambda: run.emb_update(q))
-                emb_ms = event_ms(lambda: run.emb_update(q))
-                cell[f"q{q}"] = {
-                    "warmup_epoch_s": warm, "epoch_s": secs, "epoch_s_median": statistics.median(secs),
-                    "net_steps_ms": net_ms, "emb_update_ms": emb_ms,
-                    "net_steps_peak_bytes": net_peak, "emb_update_peak_bytes": emb_peak,
-                }
-            _, eval_peak = peak_of(run.evaluate)
-            cell["eval_ms"] = event_ms(run.evaluate)
-            cell["eval_peak_bytes"] = eval_peak
-            if name == args.cudnn.split(",")[0]:
-                # device busy share and the kernels on top, q=2 (the long phase)
-                for part, fn in (("net_steps", lambda: run.net_steps(2)), ("emb_update", lambda: run.emb_update(2))):
-                    torch.cuda.synchronize()
-                    t0 = time.time()
-                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                        fn()
-                        torch.cuda.synchronize()
-                    wall = time.time() - t0
-                    dev_us, launches, top = kernel_table(prof)
-                    plain_s = cell["q2"][f"{part}_ms"] / 1e3  # the same part, timed without the profiler
-                    cell[f"profile_{part}"] = {
-                        "wall_s_under_profiler": wall, "device_busy_s": dev_us / 1e6,
-                        "device_busy_share": dev_us / 1e6 / plain_s, "device_launches": launches,
-                        "top_kernels": top,
+            for path in ("graphs", "eager"):
+                torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = CUDNN[name]
+                run = EpochRunner(gt, dist, cd, device, graphs={"graphs": True, "eager": False}[path])
+                cell = {"compute_dtype": cd, "cudnn": name, "path": path}
+                for q in (1, 2):
+                    warm = run.whole_epoch(q)  # with graphs, it captures the phase's two
+                    secs = [run.whole_epoch(q) for _ in range(args.epochs)]
+                    _, net_peak = peak_of(lambda: run.net_steps(q))
+                    net_ms = event_ms(lambda: run.net_steps(q))
+                    _, emb_peak = peak_of(lambda: run.emb_update(q))
+                    emb_ms = event_ms(lambda: run.emb_update(q))
+                    cell[f"q{q}"] = {
+                        "warmup_epoch_s": warm, "epoch_s": secs, "epoch_s_median": statistics.median(secs),
+                        "net_steps_ms": net_ms, "emb_update_ms": emb_ms,
+                        "net_steps_peak_bytes": net_peak, "emb_update_peak_bytes": emb_peak,
                     }
-            report["cells"].append(cell)
-            print(json.dumps(cell), flush=True)
-            del run
-            torch.cuda.empty_cache()
+                _, eval_peak = peak_of(run.evaluate)
+                cell["eval_ms"] = event_ms(run.evaluate)
+                cell["eval_peak_bytes"] = eval_peak
+                if name == args.cudnn.split(",")[0]:
+                    # device busy share, launches and the kernels on top, q=2 (the long phase)
+                    for part, fn in (("net_steps", lambda: run.net_steps(2)),
+                                     ("emb_update", lambda: run.emb_update(2))):
+                        torch.cuda.synchronize()
+                        t0 = time.time()
+                        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                            fn()
+                            torch.cuda.synchronize()
+                        wall = time.time() - t0
+                        dev_us, launches, top, calls = kernel_table(prof)
+                        plain_s = cell["q2"][f"{part}_ms"] / 1e3  # the same part, timed without the profiler
+                        steps = run.n_batches if part == "net_steps" else 1
+                        cell[f"profile_{part}"] = {
+                            "wall_s_under_profiler": wall, "device_busy_s": dev_us / 1e6,
+                            "device_busy_share": dev_us / 1e6 / plain_s, "device_launches": launches,
+                            "host_launch_calls": calls, "steps": steps,
+                            "device_kernels_per_step": launches / steps, "host_launch_calls_per_step": calls / steps,
+                            "top_kernels": top,
+                        }
+                report["cells"].append(cell)
+                print(json.dumps(cell), flush=True)
+                del run
+                torch.cuda.empty_cache()
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

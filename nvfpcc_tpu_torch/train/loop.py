@@ -26,6 +26,13 @@
   the sign of the whole gradient, act after the sum), and every rank takes
   the same Adam step. Every rank draws what one process draws and keeps its rows, so
   block-DP follows one process's f32 trajectory.
+- ``train`` runs chunks of epochs between host-visible boundaries
+  (:func:`chunk_end`, the JAX package's cadence) and fetches a chunk's
+  metric rows once. On a CUDA card, in one process, the gradients of the
+  net step and of the embedding update are CUDA graphs
+  (:class:`EpochProgram`, ``train/graphs.py``), replayed step by step, each
+  followed by its Adam step: the counterpart of the JAX package's one
+  compiled program per chunk (``make_epochs_fn``).
 
 Master params, both Adam states, embeddings and all loss and rate math are
 f32; ``cfg.compute_dtype="bf16"`` runs only the decoder convs in bf16.
@@ -50,11 +57,12 @@ from nvfpcc_tpu_torch.models import decoder as M
 from nvfpcc_tpu_torch.ops.gdn import GDN
 from nvfpcc_tpu_torch.parallel import mesh as pm
 from nvfpcc_tpu_torch.train import losses as L
+from nvfpcc_tpu_torch.train.graphs import capture
 from nvfpcc_tpu_torch.utils import checkpoint as ckpt_util
 from nvfpcc_tpu_torch.utils.params import params_from_numpy, params_to_numpy
 
 # the order of the per-step metric vector (rd_loss's dict, stacked on the
-# device and fetched once per epoch)
+# device and fetched once per chunk of epochs)
 METRIC_KEYS = (
     "loss", "bce", "ms0", "ms1", "pacc", "nacc", "bpp", "b_latent", "b_net",
     "sse", "denom", "lat_amax",
@@ -100,7 +108,8 @@ def emb_lr(cfg: TrainConfig, count: int) -> float:
 def make_optimizers(cfg: TrainConfig, net: M.Net, emb: torch.Tensor):
     """(net_opt, emb_opt): two Adams with optax's defaults (b1 0.9, b2 0.999,
     eps 1e-8 added outside the square root). The epoch sets each one's lr
-    from :func:`net_lr` / :func:`emb_lr` before every step."""
+    from :func:`net_lr` / :func:`emb_lr` before every step. They step
+    eagerly, also after a CUDA graph's replay (see :class:`EpochProgram`)."""
     net_opt = torch.optim.Adam(net.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
     emb_opt = torch.optim.Adam([emb], lr=cfg.lr * cfg.wemb, betas=(0.9, 0.999), eps=1e-8)
     return net_opt, emb_opt
@@ -406,49 +415,42 @@ def emb_full_grad(
     return grads[0] if c == 1 else torch.cat(grads)
 
 
-def net_steps(
+def _shard_net_steps(
     state: TrainState, cfg: TrainConfig, gt, dist, idx, mask, n_total_pts: float, q: int,
-    noise: NoiseSource, epoch: int, shard: Optional[Shard] = None,
+    noise: NoiseSource, epoch: int, shard: Shard,
 ) -> torch.Tensor:
-    """The per-batch net updates of one epoch (Adam on the parameters; the
-    gathered embedding rows are constants). Returns the per-step metrics
-    stacked (n_batches, len(METRIC_KEYS)) on the device. With a ``shard``
-    the arrays are the rank's rows, ``idx``/``mask`` the global plan, the
-    gradients are summed over the group before each step, and the rows
-    are the rank's (n_batches, len(MESH_METRIC_KEYS)) share."""
+    """A block-DP rank's per-batch net updates of one epoch (Adam on the
+    parameters; the gathered embedding rows are constants). The arrays are
+    the rank's rows, ``idx``/``mask`` the global plan on the device; the
+    gradients are summed over the group before each step. Returns the
+    rank's share of the metric rows, (n_batches, len(MESH_METRIC_KEYS)), on
+    the device."""
     net, opt = state.net, state.opt
     params = list(net.parameters())
     n_batches = idx.shape[0]
     emb_const = state.emb.detach()
     noise_shape = (idx.shape[1],) + tuple(state.emb.shape[1:])
-    if shard is None:
-        batches, keys = [(idx[i], mask[i], None, None, True) for i in range(n_batches)], METRIC_KEYS
-    else:
-        batches, keys = shard.batches(idx, mask), MESH_METRIC_KEYS
     rows = []
-    with _gates_deferred(net, shard is not None) as gdns:
-        for i, batch in enumerate(batches):
+    with _gates_deferred(net, True) as gdns:
+        for i, batch in enumerate(shard.batches(idx, mask)):
             nz = noise.draw(noise_shape, q)
             if batch is None:  # none of the batch's blocks is on this rank
                 grads = [torch.zeros_like(p) for p in params]
-                rows.append(torch.zeros(len(keys), device=emb_const.device))
+                rows.append(torch.zeros(len(MESH_METRIC_KEYS), device=emb_const.device))
             else:
                 bidx, bmask, sel, n_pts, owner = batch
-                if sel is not None and "latent" in nz:
+                if "latent" in nz:
                     nz = {**nz, "latent": nz["latent"][sel]}
                 loss, metrics = rd_loss(
                     net, cfg, emb_const[bidx], gt[bidx], dist[bidx], bmask, n_total_pts, "train", q,
-                    nz, cfg.compute_dtype, n_pts_override=n_pts, count_net=owner,
-                    acc_counts=shard is not None,
+                    nz, cfg.compute_dtype, n_pts_override=n_pts, count_net=owner, acc_counts=True,
                 )
                 # a rank that does not count the weight rate leaves its
                 # parameters (the weight-rate model's) out of the graph
-                grads = torch.autograd.grad(loss, params, allow_unused=shard is not None)
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
                 grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-                rows.append(_stack_metrics(metrics, keys))
-            if shard is not None:
-                grads = _all_reduce_grads(shard.mesh, grads)
-            for p, g in zip(params, grads):
+                rows.append(_stack_metrics(metrics, MESH_METRIC_KEYS))
+            for p, g in zip(params, _all_reduce_grads(shard.mesh, grads)):
                 p.grad = g
             for m in gdns:
                 m.gate_grads()
@@ -461,35 +463,169 @@ def net_steps(
     return torch.stack(rows)
 
 
-def emb_update(
-    state: TrainState, cfg: TrainConfig, gt, dist, block_valid, n_total_pts: float, q: int,
-    noise: NoiseSource, epoch: int, emb_chunks: int = 1, shard: Optional[Shard] = None,
-) -> None:
-    """The once-per-epoch full-set embedding update (the second Adam; under a
-    mesh each rank steps its own rows: Adam acts element by element)."""
-    state.emb.grad = emb_full_grad(
-        state.net, cfg, state.emb, gt, dist, block_valid, n_total_pts, q, noise, emb_chunks, shard
-    )
-    for group in state.emb_opt.param_groups:
-        group["lr"] = emb_lr(cfg, epoch)
-    state.emb_opt.step()
-    state.emb.grad = None
+class EpochProgram:
+    """The epoch of one training run on its state, in place: the per-batch
+    net steps, then the full-set embedding update (the counterpart of the
+    JAX package's ``make_epoch_fn``; :func:`run_epoch` runs one epoch of it).
+
+    In one process each step is split in two: the gradient (forward and
+    backward, into fixed ``.grad`` tensors; the net step also writes its
+    metric row into ``rows``), then the Adam step. The gradient reads
+    everything that changes from one step to the next from buffers that
+    keep their storage: the epoch's batch plan (``idx``/``mask``, copied in
+    once an epoch), the step's row of it (a device counter ``i`` the net
+    step advances) and the noise generator (re-seeded every epoch). With
+    ``graphs`` the two gradients are CUDA graphs per q phase
+    (``train/graphs.py``), captured at the phase's first epoch and replayed
+    ``n_batches`` times, then once; without, they run eagerly, and the two
+    give the same bits. Adam steps eagerly after each of them, with the lr
+    of :func:`net_lr`/:func:`emb_lr` set as a float, as block-DP's ranks
+    step: its bias corrections stay host doubles. A capturable Adam inside
+    the graph would take them as f32 on the card; that moved the two-rank
+    block-DP run, held against this one, past its bound on the card.
+
+    With a ``shard`` (block-DP) the epoch is the rank's, always eager
+    (:func:`_shard_net_steps`; a collective cannot be captured over gloo,
+    and the rank's batches are cut on the host)."""
+
+    def __init__(self, state: TrainState, cfg: TrainConfig, gt, dist, block_valid, n_total_pts: float,
+                 noise: NoiseSource, emb_chunks: int = 1, shard: Optional[Shard] = None, graphs: bool = False):
+        if graphs and (shard is not None or state.emb.device.type != "cuda"):
+            raise ValueError("CUDA graphs of the epoch need a CUDA device and no mesh")
+        self.state, self.cfg, self.gt, self.dist = state, cfg, gt, dist
+        self.block_valid, self.n_total_pts, self.noise = block_valid, n_total_pts, noise
+        self.emb_chunks, self.shard, self.use_graphs = emb_chunks, shard, graphs
+        self.params = list(state.net.parameters())
+        self.idx = None  # the fixed buffers, made at the first epoch (see _load_plan)
+        self.graphs: Dict[int, tuple] = {}
+        self.stream = torch.cuda.Stream(state.emb.device) if graphs else None
+
+    def _load_plan(self, idx, mask) -> None:
+        """Copy the epoch's plan into the buffers (made at the first call,
+        with the ``.grad`` tensors); a host plan is copied without a wait."""
+        if self.idx is None:
+            dev = self.state.emb.device
+            n, b = idx.shape
+            self.idx = torch.zeros((n, b), dtype=torch.long, device=dev)
+            self.mask = torch.zeros((n, b), dtype=torch.float32, device=dev)
+            self.rows = torch.zeros((n, len(METRIC_KEYS)), dtype=torch.float32, device=dev)
+            self.at = torch.arange(n, device=dev)[:, None]
+            self.i = torch.zeros((1,), dtype=torch.long, device=dev)
+            self.noise_shape = (b,) + tuple(self.state.emb.shape[1:])
+            for p in self.params:
+                p.grad = torch.zeros_like(p)
+            self.state.emb.grad = torch.zeros_like(self.state.emb)
+        elif tuple(idx.shape) != tuple(self.idx.shape):
+            raise ValueError(f"batch plan {tuple(idx.shape)} != the program's {tuple(self.idx.shape)}")
+        self.idx.copy_(idx, non_blocking=True)
+        self.mask.copy_(mask, non_blocking=True)
+
+    def _net_grad(self, q: int) -> None:
+        """The gradient of net step ``i`` of the epoch (batch row ``i`` of
+        the plan) into the ``.grad`` tensors; its metric row into
+        ``rows[i]``; ``i`` on to the next row."""
+        s = self.state
+        bidx = self.idx.index_select(0, self.i)[0]
+        bmask = self.mask.index_select(0, self.i)[0]
+        nz = self.noise.draw(self.noise_shape, q)
+        loss, metrics = rd_loss(
+            s.net, self.cfg, s.emb.detach()[bidx], self.gt[bidx], self.dist[bidx], bmask, self.n_total_pts,
+            "train", q, nz, self.cfg.compute_dtype,
+        )
+        grads = torch.autograd.grad(loss, self.params)
+        with torch.no_grad():
+            for p, g in zip(self.params, grads):
+                p.grad.copy_(g)
+            self.rows.copy_(torch.where(self.at == self.i, _stack_metrics(metrics), self.rows))
+            # modulo the epoch's steps: every epoch starts at row 0, and a
+            # capture's warm-up runs (restored after) may outnumber the steps
+            self.i.add_(1).remainder_(self.idx.shape[0])
+
+    def _emb_grad(self, q: int) -> None:
+        s = self.state
+        g = emb_full_grad(s.net, self.cfg, s.emb, self.gt, self.dist, self.block_valid, self.n_total_pts, q,
+                          self.noise, self.emb_chunks)
+        with torch.no_grad():
+            s.emb.grad.copy_(g)
+
+    def _graphs_for(self, q: int) -> tuple:
+        """(net gradient, embedding gradient) graphs of phase ``q``,
+        captured at its first use; a phase's graphs are dropped when the
+        next begins (the run never returns to it). The two share one memory
+        pool: they never run at the same time. Of the training state they
+        change only ``rows`` and ``i`` (the ``.grad`` tensors are outputs)."""
+        if q not in self.graphs:
+            self.graphs.clear()
+            mutated, gens = [self.rows, self.i], [self.noise.gen]
+            net = capture(lambda: self._net_grad(q), mutated, gens, stream=self.stream)
+            emb = capture(lambda: self._emb_grad(q), mutated, gens, pool=net.pool(), stream=self.stream)
+            self.graphs[q] = (net, emb)
+        return self.graphs[q]
+
+    def net_steps(self, epoch: int, q: int, idx, mask) -> None:
+        """The epoch's per-batch net steps over the plan ``idx``/``mask``
+        (:func:`batch_plan`'s, host or device); the rows land in ``rows``."""
+        self._load_plan(idx, mask)
+        graph = self._graphs_for(q)[0] if self.use_graphs else None
+        n, opt = self.idx.shape[0], self.state.opt
+        for i in range(n):
+            if graph is None:
+                self._net_grad(q)
+            else:
+                graph.replay()
+            for group in opt.param_groups:
+                group["lr"] = net_lr(self.cfg, n, epoch * n + i)
+            opt.step()
+
+    def emb_update(self, epoch: int, q: int) -> None:
+        """The once-per-epoch full-set embedding update (after the epoch's
+        :meth:`net_steps`, which made the buffers)."""
+        if self.use_graphs:
+            self._graphs_for(q)[1].replay()
+        else:
+            self._emb_grad(q)
+        for group in self.state.emb_opt.param_groups:
+            group["lr"] = emb_lr(self.cfg, epoch)
+        self.state.emb_opt.step()
+
+    def run(self, epoch: int, q: int, idx, mask) -> torch.Tensor:
+        """One whole epoch; returns its metric rows on the device (a copy)."""
+        self.noise.start_epoch(epoch, idx.shape[0])
+        if self.shard is None:
+            self.net_steps(epoch, q, idx, mask)
+            self.emb_update(epoch, q)
+            rows = self.rows.clone()
+        else:
+            dev = self.state.emb.device
+            rows = _shard_net_steps(self.state, self.cfg, self.gt, self.dist, idx.to(dev).long(), mask.to(dev),
+                                    self.n_total_pts, q, self.noise, epoch, self.shard)
+            s = self.state
+            s.emb.grad = emb_full_grad(s.net, self.cfg, s.emb, self.gt, self.dist, self.block_valid,
+                                       self.n_total_pts, q, self.noise, shard=self.shard)
+            for group in s.emb_opt.param_groups:
+                group["lr"] = emb_lr(self.cfg, epoch)
+            s.emb_opt.step()
+            s.emb.grad = None
+        self.state.epoch = epoch
+        return rows
 
 
 def run_epoch(
     state: TrainState, cfg: TrainConfig, gt, dist, idx, mask, block_valid, n_total_pts: float,
     q: int, noise: NoiseSource, epoch: int, emb_chunks: int = 1, shard: Optional[Shard] = None,
+    program: Optional[EpochProgram] = None,
 ) -> torch.Tensor:
-    """One full epoch on ``state`` (in place): :func:`net_steps`, then
-    :func:`emb_update`. ``idx``/``mask`` are :func:`batch_plan`'s on the
-    device (``idx`` int64). Returns the per-step metrics on the device;
-    nothing is fetched here (a ``shard``'s rows are the rank's share, see
-    :func:`net_steps`)."""
-    noise.start_epoch(epoch, idx.shape[0])
-    rows = net_steps(state, cfg, gt, dist, idx, mask, n_total_pts, q, noise, epoch, shard)
-    emb_update(state, cfg, gt, dist, block_valid, n_total_pts, q, noise, epoch, emb_chunks, shard)
-    state.epoch = epoch
-    return rows
+    """One full epoch on ``state`` (in place): the net steps, then the
+    embedding update. ``idx``/``mask`` are :func:`batch_plan`'s (host or
+    device tensors). Returns the per-step metrics on the device; nothing is
+    fetched here (a ``shard``'s rows are the rank's share, see
+    :func:`_shard_net_steps`). ``program`` is the run's
+    :class:`EpochProgram` over these same arguments (its buffers and CUDA
+    graphs carry over from epoch to epoch); without one the epoch runs on a
+    new eager program."""
+    if program is None:
+        program = EpochProgram(state, cfg, gt, dist, block_valid, n_total_pts, noise, emb_chunks, shard)
+    return program.run(epoch, q, idx, mask)
 
 
 @torch.no_grad()
@@ -558,6 +694,27 @@ def checkpoint_meta(model_cfg: ModelConfig) -> dict:
     }
 
 
+# the epochs train(profile_dir=...) traces, first and last
+PROFILE_EPOCHS = (3, 5)
+
+
+def chunk_end(cfg: TrainConfig, e0: int, profile_pending: bool = False) -> int:
+    """Last epoch (inclusive) of the chunk that starts at ``e0`` (the JAX
+    package's ``train`` cadence, ``nvfpcc_tpu/train/loop.py:565-577``): the
+    next eval/checkpoint epoch, the last epoch before the q phase change,
+    the run's last epoch, whichever comes first; while a profile trace is
+    pending (``profile_pending``), every epoch up to one past the window is
+    a chunk of its own, so the window's edges stay on the host."""
+    e1 = cfg.epochs - 1
+    if cfg.eval_every > 0:
+        e1 = min(e1, e0 + (-e0) % cfg.eval_every)  # first e >= e0 with e % eval_every == 0
+    if e0 < cfg.phase_change:
+        e1 = min(e1, cfg.phase_change - 1)
+    if profile_pending and e0 <= PROFILE_EPOCHS[1] + 1:
+        e1 = e0
+    return e1
+
+
 def _save_epoch(checkpoint_dir, epoch, state: TrainState, model_cfg, n_blocks, shard) -> None:
     """The per-epoch checkpoint (real blocks only) and the train-state
     snapshot. Under a mesh every rank gathers the embeddings and their Adam
@@ -590,6 +747,7 @@ def train(
     profile_dir: Optional[str] = None,
     noise: Optional[NoiseSource] = None,
     mesh: Optional[pm.Mesh] = None,
+    graphs: Optional[bool] = None,
 ):
     """Full training run on ``device`` (reference ``train()``,
     ``NVFPCC.py:103-393``).
@@ -608,6 +766,17 @@ def train(
     rows on the device, and rank 0 alone logs, writes the metrics and the
     checkpoints, and profiles. The returned embeddings are all the real
     blocks' on every rank; the returned embedding Adam holds the rank's rows.
+
+    The run goes in chunks of epochs (:func:`chunk_end`, the JAX package's
+    cadence): a chunk ends at the next eval and checkpoint epoch, before
+    the q phase change, at the run's end, and after each epoch of the
+    profile window. The chunk's metric rows are fetched once, after its
+    last epoch; then each epoch's metrics line and log line are written
+    (the log's seconds are the chunk's over its epochs) and a non-finite
+    loss raises :class:`TrainDivergence`. ``graphs`` runs the steps as CUDA
+    graphs (:class:`EpochProgram`): None means on exactly when ``device``
+    is CUDA, there is no ``mesh`` and the noise is the default
+    :class:`NoiseSource`; True anywhere else raises.
     """
     device = torch.device(device)
     set_train_numerics()
@@ -640,6 +809,10 @@ def train(
     emb = M.init_embeddings(block_valid.shape[0], model_cfg.ch, device).requires_grad_(True)
     opt, emb_opt = make_optimizers(cfg, net, emb)
     state = TrainState(net, opt, emb, emb_opt)
+    graph_ok = device.type == "cuda" and mesh is None and (noise is None or type(noise) is NoiseSource)
+    if graphs and not graph_ok:
+        raise ValueError("train(graphs=True) needs a CUDA device, no mesh and the default NoiseSource "
+                         f"(device {device.type}, mesh {mesh is not None}, noise {type(noise).__name__})")
     if noise is None:
         noise = NoiseSource(cfg.seed, spec, device)
 
@@ -665,72 +838,79 @@ def train(
     keys = METRIC_KEYS if mesh is None else MESH_METRIC_KEYS
     reduce_ms = []
 
-    # profile a window after the warm-up epochs
-    prof_start, prof_stop = 3, 5
-    profiler = None
+    program = EpochProgram(state, cfg, gt_d, dist_d, block_valid, n_total_pts, noise, emb_chunks, shard,
+                           graph_ok if graphs is None else graphs)
+
+    prof_dir, profiler = profile_dir, None
 
     def write_profile():
         profiler.stop()
-        os.makedirs(profile_dir, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(profile_dir, "train_trace.json"))
-        log(f"[train] profiler trace written to {profile_dir}")
+        os.makedirs(prof_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(prof_dir, "train_trace.json"))
+        log(f"[train] profiler trace written to {prof_dir}")
 
-    for epoch in range(start_epoch, cfg.epochs):
-        if profile_dir is not None and epoch == prof_start:
+    epoch = start_epoch
+    while epoch < cfg.epochs:
+        e0, e1 = epoch, chunk_end(cfg, epoch, prof_dir is not None)
+        if prof_dir is not None and e0 == PROFILE_EPOCHS[0]:
             profiler = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]
                 + ([torch.profiler.ProfilerActivity.CUDA] if device.type == "cuda" else [])
             )
             profiler.start()
         t0 = time.time()
-        q = 1 if epoch < cfg.phase_change else 2
-        idx, mask = batch_plan(n_blocks, cfg.batch_size, cfg.shuffle, cfg.seed, epoch)
-        stacked = run_epoch(
-            state, cfg, gt_d, dist_d, torch.as_tensor(idx, device=device).long(),
-            torch.as_tensor(mask, device=device), block_valid, n_total_pts, q, noise, epoch,
-            emb_chunks, shard,
-        )
-        # the one fetch of the epoch; it also waits for the device
+        q = 1 if e0 < cfg.phase_change else 2
+        chunk = []
+        for e in range(e0, e1 + 1):
+            idx, mask = batch_plan(n_blocks, cfg.batch_size, cfg.shuffle, cfg.seed, e)
+            chunk.append(run_epoch(
+                state, cfg, gt_d, dist_d, torch.from_numpy(idx).long(), torch.from_numpy(mask), block_valid,
+                n_total_pts, q, noise, e, emb_chunks, shard, program=program,
+            ))
+        # the one fetch of the chunk; it also waits for the device
+        stacked = torch.cat(chunk)
         stacked = stacked.cpu().numpy() if shard is None else _reduce_rows(mesh, stacked)
-        epoch_s = time.time() - t0
+        chunk_s = (time.time() - t0) / (e1 - e0 + 1)
         if mesh is not None:
             reduce_ms += mesh.timed_ms()
-        if profiler is not None and epoch >= prof_stop:
+        if profiler is not None and e0 >= PROFILE_EPOCHS[1]:
             write_profile()
-            profiler = None
-        s = summarize_metrics({k: stacked[:, j] for j, k in enumerate(keys)})
-        if not np.isfinite(s["loss"]):
-            raise TrainDivergence(f"non-finite loss at epoch {epoch} (q={q}): {s}")
-        if metrics_path is not None:
-            with open(metrics_path, "a") as f:
-                f.write(json.dumps({"epoch": epoch, "q": q, **s}) + "\n")
-        log(
-            f"[Epoch {epoch:04d} TRAIN {epoch_s:.1f}s] "
-            f"Loss: {s['loss']:.4e} Pacc: {s['pacc']:.4f} Nacc: {s['nacc']:.4f} "
-            f"S1: {s['ms0']:.1f} S2: {s['ms1']:.1f} bpp: {s['bpp']:.4f} "
-            f"b_latent: {s['b_latent']:.4f} b_net: {s['b_net']:.4f} "
-            f"MSE1: {s['mse1']:.4f} PSNR1: {s['psnr1']:.4f}"
-        )
+            profiler, prof_dir = None, None
+        for e, rows in zip(range(e0, e1 + 1), stacked.reshape(e1 - e0 + 1, -1, stacked.shape[-1])):
+            s = summarize_metrics({k: rows[:, j] for j, k in enumerate(keys)})
+            if not np.isfinite(s["loss"]):
+                raise TrainDivergence(f"non-finite loss at epoch {e} (q={q}): {s}")
+            if metrics_path is not None:
+                with open(metrics_path, "a") as f:
+                    f.write(json.dumps({"epoch": e, "q": q, **s}) + "\n")
+            log(
+                f"[Epoch {e:04d} TRAIN {chunk_s:.1f}s] "
+                f"Loss: {s['loss']:.4e} Pacc: {s['pacc']:.4f} Nacc: {s['nacc']:.4f} "
+                f"S1: {s['ms0']:.1f} S2: {s['ms1']:.1f} bpp: {s['bpp']:.4f} "
+                f"b_latent: {s['b_latent']:.4f} b_net: {s['b_net']:.4f} "
+                f"MSE1: {s['mse1']:.4f} PSNR1: {s['psnr1']:.4f}"
+            )
 
-        if cfg.eval_every > 0 and epoch % cfg.eval_every == 0:
+        epoch = e1 + 1
+        if cfg.eval_every > 0 and e1 % cfg.eval_every == 0:
             es = summarize_metrics(
                 evaluate(net, cfg, state.emb, gt_d, dist_d, block_valid, n_total_pts, shard)
             )
             if es.get("lat_amax", 0.0) > LATENT_GUARD and (mesh is None or not mesh.rank):
                 warnings.warn(
-                    f"epoch {epoch}: max |rounded latent| = {es['lat_amax']:.0f} "
+                    f"epoch {e1}: max |rounded latent| = {es['lat_amax']:.0f} "
                     f"is approaching the coder alphabet edge (512); encode "
                     "will clamp (rate loss). Consider a larger lambda*w1 or "
                     "checking for divergence."
                 )
             log(
-                f"[Epoch {epoch:04d} TEST] Loss: {es['loss']:.4e} "
+                f"[Epoch {e1:04d} TEST] Loss: {es['loss']:.4e} "
                 f"Pacc: {es['pacc']:.4f} Nacc: {es['nacc']:.4f} bpp: {es['bpp']:.4f} "
                 f"b_latent: {es['b_latent']:.4f} b_net: {es['b_net']:.4f} "
                 f"MSE1: {es['mse1']:.4f} PSNR1: {es['psnr1']:.4f}"
             )
             if checkpoint_dir is not None:
-                _save_epoch(checkpoint_dir, epoch, state, model_cfg, n_blocks, shard)
+                _save_epoch(checkpoint_dir, e1, state, model_cfg, n_blocks, shard)
 
     if profiler is not None:  # the run ended inside the window
         write_profile()

@@ -1,12 +1,15 @@
 """The port's headline bench (``nvfpcc_tpu_torch/tools/bench.py``) against the
 repo's ``bench.py``: the copied grids, origins and constants equal the
 originals; a tiny CPU run (20 blocks, a 1-epoch warm-up chunk and one timed
-1-epoch chunk) prints ``bench.py``'s keys in its order, finite values and
-the codec's parity; a non-finite metric row or a decode that differs from
-the encoder's reconstruction exits 1 without the last line; the options
-are ``--timed_chunks`` and ``--platform``, and the default is the card."""
+1-epoch chunk) prints ``bench.py``'s keys in its order, finite values, the
+epochs a chunk runs per fetch (ten at the defaults, as ``bench.py``) and
+the codec's parity; a non-finite metric row (checked after a chunk's last
+epoch) or a decode that differs from the encoder's reconstruction exits 1
+without the last line; the options are ``--timed_chunks`` and
+``--platform``, and the default is the card."""
 
 import contextlib
+import inspect
 import io
 import json
 
@@ -62,7 +65,9 @@ def test_tiny_cpu_run_prints_bench_py_keys_and_parity():
     lines, last = _run()
     assert list(last) == KEYS
     assert last["metric"] == "train_epoch_flagship" and last["unit"] == "ms"
-    assert last["baseline_inferred"] is True and last["epochs_per_dispatch"] == 1
+    # a chunk's epochs per fetch; at the defaults bench.py's ten
+    assert last["baseline_inferred"] is True and last["epochs_per_dispatch"] == TINY["chunk_epochs"]
+    assert inspect.signature(B.run_bench).parameters["chunk_epochs"].default == B.EPOCHS_PER_DISPATCH == 10
     for k in ("value", "vs_baseline", "encode_ms", "decode_ms"):
         assert np.isfinite(last[k]) and last[k] > 0, k
     # from the unrounded epoch time, as bench.py computes it
@@ -88,12 +93,20 @@ def test_main_prints_the_card_line_first_and_the_json_line_last(monkeypatch):
 
 
 def test_non_finite_metrics_exit_1_without_the_last_line(monkeypatch):
-    real = TT.run_epoch
-    monkeypatch.setattr(TT, "run_epoch", lambda *a, **k: real(*a, **k) * float("nan"))
+    """The rows are checked once a chunk, after its last epoch: a chunk of
+    two epochs on one program runs both, then exits at the first bad one."""
+    real, programs = TT.run_epoch, []
+
+    def nan_rows(*a, **k):
+        programs.append(k["program"])
+        return real(*a, **k) * float("nan")
+
+    monkeypatch.setattr(TT, "run_epoch", nan_rows)
     lines = []
-    with pytest.raises(SystemExit, match="non-finite metrics") as exc:
-        B.run_bench("cpu", 1, log=lines.append, **TINY)
+    with pytest.raises(SystemExit, match="non-finite metrics .* at epoch 0 of a chunk") as exc:
+        B.run_bench("cpu", 1, log=lines.append, **{**TINY, "chunk_epochs": 2})
     assert str(exc.value).startswith("[bench]") and lines == []
+    assert len(programs) == 2 and programs[0] is programs[1]
 
 
 def test_a_decode_unlike_the_encoder_exits_1(monkeypatch):

@@ -89,6 +89,36 @@ def test_fit_reaches_the_jax_fit_and_beats_the_marginal():
         assert tep[n]["kernel"].shape == tspec.specs[n].kernel_shape and tep[n]["kernel"].dtype == np.float32
 
 
+def test_fit_keywords_hold_to_the_jax_fit():
+    """The JAX function's keywords: a warm start (``init_entropy``, the
+    feature init plus seeded noise), the payload at half weight, another
+    finetune lr; held to the JAX fit from the same start at the tolerance
+    above. Then a port fit starts from the warm start's bits, and
+    ``early_stop_patience`` 1 stops a phase at its second chunk (every
+    chunk counts as flat at ``early_stop`` 1.0; the default 2 would not)."""
+    kw = dict(entropy_mode="ctx_ar", ctx_hidden=8, ctx_tail=3)
+    jspec, tspec = JM.build_model_spec(CH, CHANNELS, **kw), TM.build_model_spec(CH, CHANNELS, **kw)
+    lat = _structured_latents()
+    rng = np.random.default_rng(5)
+    init = {n: {k: (np.asarray(v) + rng.normal(0, 0.02, np.shape(v))).astype(np.float32) for k, v in leaf.items()}
+            for n, leaf in JM.ctx_feature_init(jspec).items()}
+    wrate = {"sigma": np.asarray([0.5], np.float32), "mu": np.asarray([0.0], np.float32)}
+    fit_kw = dict(wrate=wrate, steps=250, finetune_steps=250, finetune_lr=5e-3, payload_weight=0.5,
+                  init_entropy=init, early_stop=0.0)
+    jep = jfit.fit_ctx_predictor(jspec, lat, log=lambda m: None, **fit_kw)
+    tep = tfit.fit_ctx_predictor(tspec, lat, "cpu", log=lambda m: None, **fit_kw)
+    jbits, tbits = _jax_bits(jspec, jep, lat), _jax_bits(jspec, tep, lat)
+    start = _jax_bits(jspec, init, lat)
+    assert abs(tbits - jbits) <= 0.25 * jbits, (tbits, jbits)
+    assert tbits < 0.85 * _marginal_bits(lat) and tbits < 0.8 * start, (tbits, start)
+    # the warm start is where the port begins: its first logged bits are the start's
+    logs = []
+    tfit.fit_ctx_predictor(tspec, lat[:16], "cpu", steps=500, finetune_steps=0, init_entropy=init,
+                           early_stop=1.0, early_stop_patience=1, log=logs.append)
+    assert round(float(logs[0].split("start ")[1].split()[0])) == round(_jax_bits(jspec, init, lat[:16]))
+    assert any("converged at chunk 2/2 (1 chunks" in m for m in logs), logs
+
+
 def test_early_stop_and_short_fits_run_whole_chunks():
     """early_stop=1.0 makes every chunk count as flat: with patience 2 each
     phase stops at its third chunk; a 100-step phase still runs one whole

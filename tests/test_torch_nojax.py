@@ -64,7 +64,7 @@ def test_no_jax_import_in_the_port_sources():
     sources = list(_port_sources())
     assert len(sources) > 20
     for entry in ("parallel/mesh.py", "tools/dryrun_multichip.py", "tools/rd_sweep.py", "tools/encode_eval.py",
-                  "tools/pipeline_demo.py", "tools/bench.py", "tools/entry.py"):
+                  "tools/pipeline_demo.py", "tools/bench.py", "tools/entry.py", "train/graphs.py"):
         assert os.path.join(ROOT, "nvfpcc_tpu_torch", entry) in sources
     for path in sources:
         with open(path) as fh:

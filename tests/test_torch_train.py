@@ -261,6 +261,44 @@ def test_snapshot_round_trip(toy, tmp_path):
                  checkpoint_dir=str(tmp_path), log=lambda s: None, resume=True)
 
 
+def _integer_step_snapshot(path, state, epoch):
+    """A snapshot in the flat layout with integer steps, written field by
+    field, as ``save_train_state`` wrote them before the trainer ran in
+    chunks."""
+    mu, nu, count = TP.adam_state_to_numpy(state.opt, TP.named_params(state.net))
+    emu, enu, ecount = TP.adam_state_to_numpy(state.emb_opt, {"emb": state.emb})
+    flat = {f"params/{k}": v for k, v in TP.flatten_tree(TP.params_to_numpy(state.net)).items()}
+    flat.update({f"opt/exp_avg/{k}": v for k, v in mu.items()})
+    flat.update({f"opt/exp_avg_sq/{k}": v for k, v in nu.items()})
+    np.savez(path, **flat, **{"opt/step": np.int64(count), "emb": state.emb.detach().numpy(),
+                              "emb_opt/exp_avg": emu["emb"], "emb_opt/exp_avg_sq": enu["emb"],
+                              "emb_opt/step": np.int64(ecount), "epoch": np.int64(epoch)})
+
+
+def test_snapshots_with_either_step_form_resume_alike(toy, tmp_path):
+    """An integer-step snapshot written field by field and the one the
+    chunked ``train`` writes both resume to epoch 3 and the same state, bit
+    for bit."""
+    state = _run(toy, str(tmp_path / "new"), 3)
+    os.makedirs(tmp_path / "int")
+    _integer_step_snapshot(str(tmp_path / "int" / "state_0002.npz"), state, 2)
+    cfg = TrainConfig(**{**KW, "epochs": 4})
+    got = {}
+    for form in ("int", "new"):
+        logs = []
+        resumed = TT.train(toy["gt"], toy["dist"], ModelConfig(ch=H.CH, chanstr=H.CHANSTR), cfg, "cpu",
+                           checkpoint_dir=str(tmp_path / form), log=logs.append, resume=True)[1]
+        assert any("resumed from" in x and "state_0002" in x for x in logs) and resumed.epoch == 3
+        got[form] = H.port_state_numpy(resumed)
+    a, b = got["int"], got["new"]
+    assert a["count"] == b["count"] == 8 and a["emb_count"] == b["emb_count"] == 4
+    for k, v in TP.flatten_tree(b["params"]).items():
+        np.testing.assert_array_equal(TP.flatten_tree(a["params"])[k], v)
+        np.testing.assert_array_equal(a["mu"][k], b["mu"][k])
+    for k in ("emb", "emb_mu", "emb_nu"):
+        np.testing.assert_array_equal(a[k], b[k])
+
+
 def test_train_divergence_on_non_finite_loss(toy):
     dist = toy["dist"].copy()
     dist[0, 0, 0, 0] = np.inf
