@@ -19,20 +19,24 @@ a checkpoint and a snapshot exist and ``--resume`` runs one more epoch. It
 prints seconds per epoch for each phase, the split net steps / embedding
 update / eval (CUDA events) and the peak device memory.
 
-Then CUDA graphs against eager on the sphere's grids at flagship width in
-bf16, under ``torch.use_deterministic_algorithms``: ``train`` with
-``graphs=True`` (the gradients of the net step and of the embedding
-update captured once a q phase and replayed, each followed by its Adam
-step, as the trainer runs on the card) and with
+Then CUDA graphs against eager on the sphere's grids at flagship width,
+under ``torch.use_deterministic_algorithms`` (``tools/graph_check.py``):
+``train`` with ``graphs=True`` (the gradients of the net step and of the
+embedding update captured once a q phase and replayed, each followed by
+its Adam step, as the trainer runs on the card) and with
 ``graphs=False`` (the same steps launched one kernel at a time) from the
-same init, for 2 epochs at q=1 and 2 at q=2 (eval every 2), for 2 epochs
-with the embedding update in 2 chunks, and for 2 epochs in the ctx mode
-(whose q=2 step draws no noise); every parameter, the embeddings, both
-Adams' moments and steps, every metric row and the metrics lines must be
-equal bit for bit. Then the ctx_post fit (ctx_ar, hidden 32, tail 24) of
-the ctx run's latents with graphs and eager, one 250-step chunk a phase:
-the fitted trees equal bit for bit. It prints both ways' epoch seconds,
-the fit's steps per second, and, with cuDNN free, the net steps' device
+same init, in bf16 for 2 epochs at q=1 and 2 at q=2 (eval every 2), for 2
+epochs with the embedding update in 2 chunks, and for 2 epochs across the
+phase change in each other entropy mode (ctx, whose q=2 step draws no
+noise, spatio, gmm, factorized, ctx_ar), then channel in f32 for 2 epochs,
+then channel in bf16 for 2 epochs into a checkpoint dir and resumed from
+its snapshot to 4 (each side its own dir); every parameter, the
+embeddings, both Adams' moments and steps, every metric row and the
+metrics lines must be equal bit for bit. Then the ctx_post fit (ctx_ar,
+hidden 32, tail 24) of the ctx run's latents with graphs and eager, one
+250-step chunk a phase: the fitted trees equal bit for bit. It prints both
+ways' epoch seconds and peak device bytes, the capture seconds of each q
+phase, the fit's steps per second, and, with cuDNN free, the net steps' device
 kernels and host launch calls per step and the device's busy share (10
 steps on 160 of the blocks).
 
@@ -197,9 +201,15 @@ REALDATA = (("v1", "ref_style_vox10.ply"), ("v2", "ref_style_vox10_v2.ply"))
 BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "baseline_inferred", "epochs_per_dispatch", "encode_ms",
               "decode_ms"]
 # the graphs phase: train with CUDA graphs and eager from one init, per run
-# (entropy mode, emb_chunks, epochs, phase change, eval_every); then the
-# ctx_post fit both ways, one 250-step chunk a phase
-GRAPH_RUNS = (("channel", 1, 4, 2, 2), ("channel", 2, 2, 1, 0), ("ctx", 1, 2, 1, 0))
+# (entropy mode, emb_chunks, epochs, phase change, eval_every, compute
+# dtype); then the ctx_post fit both ways, one 250-step chunk a phase
+GRAPH_RUNS = (("channel", 1, 4, 2, 2, "bf16"), ("channel", 2, 2, 1, 0, "bf16"), ("ctx", 1, 2, 1, 0, "bf16"),
+              ("spatio", 1, 2, 1, 0, "bf16"), ("gmm", 1, 2, 1, 0, "bf16"), ("factorized", 1, 2, 1, 0, "bf16"),
+              ("ctx_ar", 1, 2, 1, 0, "bf16"), ("channel", 1, 2, 1, 0, "f32"))
+# and a resumed pair (channel, bf16): (epochs of the first run, epochs after
+# the resume, phase change, eval_every); each side resumes from the snapshot
+# its own first run wrote
+GRAPH_RESUME = (2, 4, 3, 1)
 GRAPH_FIT = dict(steps=250, finetune_steps=250, early_stop=0.0)
 # the launch profile's blocks: 10 net steps of 16 (a step's kernels and
 # launches do not depend on how many blocks the epoch has; the profiler's
@@ -1100,52 +1110,6 @@ def phase_tools(torch, K, w, n_points: int, thh: float) -> dict:
     return stats
 
 
-def bits_equal(a: dict, b: dict) -> list:
-    """The keys of two dicts of numpy arrays whose bytes differ (or that one lacks)."""
-    return sorted(k for k in set(a) | set(b)
-                  if k not in a or k not in b or a[k].shape != b[k].shape or a[k].tobytes() != b[k].tobytes())
-
-
-def graph_train_run(torch, gt, dist, mcfg, cfg, graphs: bool, metrics_path: str) -> dict:
-    """``train`` on the card from its init with CUDA graphs or eager: the
-    state as numpy (every parameter, the embeddings, both Adams' moments
-    and steps), every epoch's metric rows (recorded as ``train`` gets them
-    from ``run_epoch``), the metrics lines, the log's epoch seconds and the
-    run's seconds."""
-    from nvfpcc_tpu_torch.train import loop as TT
-    from nvfpcc_tpu_torch.utils.params import adam_state_to_numpy, flatten_tree, named_params, params_to_numpy
-
-    rows, real = [], TT.run_epoch
-
-    def recording(*a, **k):
-        rows.append(real(*a, **k))
-        return rows[-1]
-
-    lines = []
-    TT.run_epoch = recording
-    try:
-        torch.cuda.synchronize()
-        t = time.time()
-        _, state = TT.train(gt, dist, mcfg, cfg, "cuda", log=lines.append, metrics_path=metrics_path,
-                            graphs=graphs)
-        torch.cuda.synchronize()
-        secs = time.time() - t
-    finally:
-        TT.run_epoch = real
-    arrays = {f"params/{k}": v for k, v in flatten_tree(params_to_numpy(state.net)).items()}
-    arrays["emb"] = state.emb.detach().cpu().numpy()
-    for name, opt, named in (("opt", state.opt, named_params(state.net)), ("emb_opt", state.emb_opt, {"emb": state.emb})):
-        mu, nu, count = adam_state_to_numpy(opt, named)
-        arrays.update({f"{name}/mu/{k}": v for k, v in mu.items()})
-        arrays.update({f"{name}/nu/{k}": v for k, v in nu.items()})
-        arrays[f"{name}/step"] = np.asarray(count)
-    arrays["metric_rows"] = torch.stack(rows).cpu().numpy()
-    with open(metrics_path) as f:
-        metric_lines = f.read().splitlines()
-    return {"arrays": arrays, "metric_lines": metric_lines, "epoch_s": epoch_seconds("\n".join(lines)),
-            "train_s": secs, "state": state}
-
-
 def launch_profile(torch, gt, dist, graphs: bool) -> dict:
     """A q=2 epoch's net steps at flagship width in bf16 (cuDNN free), after
     one warm epoch (which captures the graphs): CUDA-event milliseconds,
@@ -1169,9 +1133,11 @@ def launch_profile(torch, gt, dist, graphs: bool) -> dict:
 
 
 def phase_graphs(torch, w, n_blocks: int) -> dict:
-    """CUDA graphs against eager on the sphere's grids at flagship width, in
-    bf16, under deterministic algorithms: ``train(graphs=True)`` and
-    ``train(graphs=False)`` from the same init (GRAPH_RUNS), every parameter,
+    """CUDA graphs against eager on the sphere's grids at flagship width,
+    under deterministic algorithms (``tools/graph_check.py``):
+    ``train(graphs=True)`` and ``train(graphs=False)`` from the same init
+    (GRAPH_RUNS: every entropy mode in bf16, channel in f32; then
+    GRAPH_RESUME, both resumed from their own snapshot), every parameter,
     the embeddings, both Adams and every metric row equal bit for bit; then
     the ctx_post fit of the ctx run's latents both ways (one 250-step chunk
     a phase), the fitted tree equal bit for bit. With cuDNN free, the net
@@ -1179,6 +1145,7 @@ def phase_graphs(torch, w, n_blocks: int) -> dict:
     LAUNCH_PROFILE_BLOCKS blocks."""
     from nvfpcc_tpu_torch.config import ModelConfig, TrainConfig
     from nvfpcc_tpu_torch.models import decoder as M
+    from nvfpcc_tpu_torch.tools.graph_check import bits_equal, graph_eager_pair
     from nvfpcc_tpu_torch.train import ctx_fit as TF
     from nvfpcc_tpu_torch.utils.params import flatten_tree, params_to_numpy
 
@@ -1187,27 +1154,25 @@ def phase_graphs(torch, w, n_blocks: int) -> dict:
     if len(gt) != n_blocks:
         fail(f"the graphs phase read {len(gt)} blocks, not the sphere's {n_blocks}")
     stats, ctx_state = {}, None
+    pairs = [(f"{mode}_{dtype}_emb_chunks{chunks}", mode,
+              TrainConfig(epochs=epochs, phase_change=phase_change, eval_every=eval_every, emb_chunks=chunks,
+                          compute_dtype=dtype), None)
+             for mode, chunks, epochs, phase_change, eval_every, dtype in GRAPH_RUNS]
+    first, epochs, phase_change, eval_every = GRAPH_RESUME
+    pairs.append((f"channel_bf16_resume{first}to{epochs}", "channel",
+                  TrainConfig(epochs=epochs, phase_change=phase_change, eval_every=eval_every),
+                  TrainConfig(epochs=first, phase_change=phase_change, eval_every=eval_every)))
+    for name, mode, cfg, first_cfg in pairs:
+        stats[name], run = graph_eager_pair(gt, dist, ModelConfig(entropy_mode=mode), cfg, w("."), name, first_cfg)
+        log(f"graphs {name}: " + json.dumps(stats[name]))
+        if not stats[name]["equal"]:
+            fail(f"graph-replayed training differs from eager ({name}): {stats[name]['differ'][:8]}, "
+                 f"metrics lines equal {stats[name]['metric_lines_equal']}")
+        if mode == "ctx":
+            ctx_state = run["state"]
+        del run
     torch.use_deterministic_algorithms(True)
     try:
-        for mode, chunks, epochs, phase_change, eval_every in GRAPH_RUNS:
-            name = f"{mode}_emb_chunks{chunks}"
-            mcfg = ModelConfig(entropy_mode=mode)
-            cfg = TrainConfig(epochs=epochs, phase_change=phase_change, eval_every=eval_every, emb_chunks=chunks)
-            runs = {g: graph_train_run(torch, gt, dist, mcfg, cfg, g, w(f"graphs_{name}_{g}.jsonl"))
-                    for g in (True, False)}
-            differ = bits_equal(runs[True]["arrays"], runs[False]["arrays"])
-            same_lines = runs[True]["metric_lines"] == runs[False]["metric_lines"]
-            stats[name] = {"epochs": epochs, "phase_change": phase_change, "compared": len(runs[True]["arrays"]),
-                           "differ": differ, "metric_lines_equal": same_lines,
-                           **{f"{k}_{'graphs' if g else 'eager'}": runs[g][k]
-                              for g in (True, False) for k in ("train_s", "epoch_s")}}
-            log(f"graphs {name}: " + json.dumps(stats[name]))
-            if differ or not same_lines:
-                fail(f"graph-replayed training differs from eager ({name}): {differ[:8]}, "
-                     f"metrics lines equal {same_lines}")
-            if mode == "ctx":
-                ctx_state = runs[True]["state"]
-            del runs
         spec = M.build_model_spec(3, (8, 16, 8, 8), entropy_mode="ctx_ar", ctx_hidden=32, ctx_tail=24)
         params = params_to_numpy(ctx_state.net)
         lat = TF.latents_from_checkpoint(spec, params, ctx_state.emb.detach().cpu().numpy(), "cuda")

@@ -2,15 +2,22 @@
 through the port's CLI on the synthetic vox11 sphere
 (``scripts/synth_cloud.py --depth 11``) at ``--level 6``:
 
-    grids -> train --entropy_mode auto (must resolve to ctx) -> encode
+    grids -> graph = eager (``tools/graph_check.py``: ctx, the embedding
+    update in the chunks ``train`` resolves for this block count, 2 epochs
+    across the phase change, with CUDA graphs and eagerly under
+    deterministic algorithms, equal bit for bit) -> train --entropy_mode
+    auto (must resolve to ctx; CUDA graphs) -> encode
     --entropy_mode auto (must resolve to ctx_ar + ctx_post, hidden 32 tail
     24, with the default 3000 + 1000 fit steps and early stop) -> decode in a
     fresh process (rc_enc == rc_dec) -> eval (D1)
 
-It times each stage on the host clock and writes the blocks, symbols, fit
-seconds and the chunk where each fit phase stopped, the pack's bytes and
-bpp split, the peak device memory, the parity, and a profile of the fit's
-steps at this cloud's shapes to ``--out``. A short
+It times each stage on the host clock and writes the blocks, symbols, the
+graph = eager pair (its result, the count of arrays compared, each side's
+epoch seconds and peak device bytes, the seconds of each capture by q
+phase), the train's capture seconds by q phase, fit seconds and the chunk
+where each fit phase stopped, the pack's bytes and bpp split, the peak
+device memory, the parity, and a profile of the fit's steps at this
+cloud's shapes to ``--out``. A short
 training does not reach the default threshold, so encode takes the
 occupancy level that keeps about as many voxels as the cloud has points
 (``threshold_keeping``), unless ``--thh`` is given.
@@ -66,8 +73,8 @@ def threshold_keeping(ckdir: str, n_points: int, device) -> float:
 def profile_fit(ckdir: str, device, steps: int = 250) -> dict:
     """Where a fit step's time goes at this cloud's shapes: ``steps`` q=0
     steps of the h32t24 ctx_ar fit on the checkpoint's latents, once plain
-    (host clock) and once under ``torch.profiler`` (device time, launches,
-    the kernels on top)."""
+    (host clock) and once under ``torch.profiler`` (device time, device
+    kernels and host launch calls, the kernels on top)."""
     from torch.profiler import ProfilerActivity, profile
 
     from nvfpcc_tpu_torch.models import decoder as M
@@ -89,9 +96,10 @@ def profile_fit(ckdir: str, device, steps: int = 250) -> dict:
     wall = time.time() - t
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fit()
-    dev_us, launches, top = kernel_table(prof)
+    dev_us, kernels, top, calls = kernel_table(prof)
     return {"steps": steps, "wall_s": wall, "steps_per_s": steps / wall, "device_busy_s": dev_us / 1e6,
-            "device_busy_share": dev_us / 1e6 / wall, "launches_per_step": launches / steps, "top": top}
+            "device_busy_share": dev_us / 1e6 / wall, "device_kernels_per_step": kernels / steps,
+            "host_launch_calls_per_step": calls / steps, "top": top}
 
 
 def main() -> int:
@@ -104,6 +112,9 @@ def main() -> int:
     ap.add_argument("--phase_change", type=int, default=6)
     ap.add_argument("--thh", type=float, default=None)
     args = ap.parse_args()
+    # cuBLAS reads it at its first call; the graph = eager pair's
+    # deterministic runs need it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
 
@@ -114,8 +125,11 @@ def main() -> int:
     from scripts.synth_cloud import bumpy_sphere_cloud
 
     from nvfpcc_tpu_torch.cli import main as cli
+    from nvfpcc_tpu_torch.config import ModelConfig, TrainConfig
     from nvfpcc_tpu_torch.device import card_line
     from nvfpcc_tpu_torch.io.ply import read_ply_points, write_ply_points
+    from nvfpcc_tpu_torch.tools.graph_check import graph_eager_pair, recorded
+    from nvfpcc_tpu_torch.train.loop import resolve_emb_chunks
 
     def run(argv) -> tuple:
         buf = io.StringIO()
@@ -146,16 +160,32 @@ def main() -> int:
     report["grids_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     with np.load(w(f"sphere_d{args.depth}_l{args.level}_grids.npz")) as art:
         report["blocks"] = int(len(art["origins"]))
+        gt, dist = art["gt"], art["dist"]
     report["symbols"] = report["blocks"] * 3 * 8
     print(json.dumps({k: report[k] for k in ("n_points", "blocks", "symbols", "grids_s")}), flush=True)
 
+    chunks = resolve_emb_chunks(0, report["blocks"])
+    pair, _ = graph_eager_pair(gt, dist, ModelConfig(entropy_mode="ctx"),
+                               TrainConfig(epochs=2, phase_change=1, eval_every=0, emb_chunks=chunks),
+                               args.workdir, "graph_pair")
+    del gt, dist
+    report["graph_pair"] = {"entropy_mode": "ctx", "emb_chunks": chunks, **pair}
+    print("graph = eager: " + json.dumps(report["graph_pair"]), flush=True)
+    if not pair["equal"]:
+        raise RuntimeError(f"graph-replayed training differs from eager: {pair['differ'][:8]}, "
+                           f"metrics lines equal {pair['metric_lines_equal']}")
+    torch.cuda.empty_cache()
+
     torch.cuda.reset_peak_memory_stats()
-    out, report["train_s"] = run([
-        "train", *common, "--entropy_mode", "auto", "--epochs", str(args.epochs),
-        "--phase_change", str(args.phase_change), "--eval_every", str(max(args.epochs - 1, 1)),
-        "--checkpoint_dir", w("ckpt"), "--metrics", w("train.jsonl"),
-    ])
+    with recorded() as rec:
+        out, report["train_s"] = run([
+            "train", *common, "--entropy_mode", "auto", "--epochs", str(args.epochs),
+            "--phase_change", str(args.phase_change), "--eval_every", str(max(args.epochs - 1, 1)),
+            "--checkpoint_dir", w("ckpt"), "--metrics", w("train.jsonl"),
+        ])
     report["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    report["train_capture_s"] = rec["capture_s"]
+    del rec
     if "entropy_mode auto -> ctx" not in out:
         raise RuntimeError("train --entropy_mode auto did not resolve to ctx")
     report["epoch_s"] = [float(x) for x in re.findall(r" TRAIN ([\d.]+)s\]", out)]

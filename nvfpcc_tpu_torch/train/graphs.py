@@ -28,12 +28,39 @@ from pageable memory, a CPU tensor) raises.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Sequence
 
 import torch
 
 # eager runs of a step on the capture stream before it is captured
 WARMUP_RUNS = 2
+
+
+def warm_up(
+    step: Callable[[], None],
+    mutated: Sequence[torch.Tensor],
+    generators: Sequence[torch.Generator] = (),
+    stream: torch.cuda.Stream | None = None,
+) -> None:
+    """Run ``step`` ``WARMUP_RUNS`` times (on ``stream`` when given, after
+    the current stream's work), then put back every tensor in ``mutated``
+    and every generator's state as they were before. Needs no CUDA without
+    a ``stream``: the part of :func:`capture` a CPU test can run."""
+    saved = [t.detach().clone() for t in mutated]
+    gen_states = [g.get_state() for g in generators]
+    if stream is not None:
+        stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+        for _ in range(WARMUP_RUNS):
+            step()
+    if stream is not None:
+        torch.cuda.current_stream().wait_stream(stream)
+    with torch.no_grad():
+        for t, s in zip(mutated, saved):
+            t.copy_(s)
+    for g, s in zip(generators, gen_states):
+        g.set_state(s)
 
 
 def capture(
@@ -44,28 +71,16 @@ def capture(
     stream: torch.cuda.Stream | None = None,
 ) -> torch.cuda.CUDAGraph:
     """Capture ``step`` (no arguments, no result: it reads and writes fixed
-    tensors) into a new CUDA graph and return it. ``mutated`` lists every
-    tensor whose value the step changes and must survive the warm-up
-    unchanged; ``generators`` every ``torch.Generator`` it draws from.
-    ``pool`` shares a memory pool with graphs that never run concurrently
-    with this one (``graph.pool()``); ``stream`` is the side stream the
-    warm-up and the capture run on (a new one by default)."""
+    tensors) into a new CUDA graph and return it, after :func:`warm_up`.
+    ``mutated`` lists every tensor whose value the step changes and must
+    survive the warm-up unchanged; ``generators`` every ``torch.Generator``
+    it draws from. ``pool`` shares a memory pool with graphs that never run
+    concurrently with this one (``graph.pool()``); ``stream`` is the side
+    stream the warm-up and the capture run on (a new one by default)."""
     if not mutated or any(t.device.type != "cuda" for t in mutated):
         raise ValueError("a CUDA graph captures a step over CUDA tensors only")
     stream = stream if stream is not None else torch.cuda.Stream(mutated[0].device)
-    saved = [t.detach().clone() for t in mutated]
-    gen_states = [g.get_state() for g in generators]
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        for _ in range(WARMUP_RUNS):
-            step()
-    torch.cuda.current_stream().wait_stream(stream)
-    with torch.no_grad():
-        for t, s in zip(mutated, saved):
-            t.copy_(s)
-    for g, s in zip(generators, gen_states):
-        g.set_state(s)
-    del saved
+    warm_up(step, mutated, generators, stream)
     graph = torch.cuda.CUDAGraph()
     for g in generators:
         graph.register_generator_state(g)

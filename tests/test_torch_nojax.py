@@ -1,7 +1,9 @@
 """The port runs without jax and without the JAX package: every
 nvfpcc_tpu_torch module imports, and a toy decode runs on the CPU, in a
 process where importing jax or ``nvfpcc_tpu`` fails; no source line of the
-port or of ``chip_smoke.py`` imports either."""
+port or of ``chip_smoke.py`` imports either. The graph = eager check that
+``chip_smoke.py`` and ``tools/ctx_recipe.py`` share tells a one-ulp
+difference from equal trees."""
 
 import os
 import re
@@ -64,7 +66,8 @@ def test_no_jax_import_in_the_port_sources():
     sources = list(_port_sources())
     assert len(sources) > 20
     for entry in ("parallel/mesh.py", "tools/dryrun_multichip.py", "tools/rd_sweep.py", "tools/encode_eval.py",
-                  "tools/pipeline_demo.py", "tools/bench.py", "tools/entry.py", "train/graphs.py"):
+                  "tools/pipeline_demo.py", "tools/bench.py", "tools/entry.py", "train/graphs.py",
+                  "tools/graph_check.py", "tools/ctx_recipe.py"):
         assert os.path.join(ROOT, "nvfpcc_tpu_torch", entry) in sources
     for path in sources:
         with open(path) as fh:
@@ -98,3 +101,23 @@ def test_layer_map_names_every_subpackage():
     for name in ("channel", "spatio", "gmm", "factorized", "ctx", "ctx_ar", "train/ctx_fit.py",
                  "coder/ctx_coder.py", "metrics/d2.py"):
         assert name in doc, name
+
+
+def test_bits_equal_reports_a_one_ulp_difference():
+    import numpy as np
+
+    from nvfpcc_tpu_torch.tools.graph_check import bits_equal
+
+    rng = np.random.default_rng(0)
+    a = {"params/w": rng.normal(size=(3, 4)).astype(np.float32), "step": np.asarray(7),
+         "rows": rng.normal(size=(2, 12)).astype(np.float32)}
+    b = {k: v.copy() for k, v in a.items()}
+    assert bits_equal(a, b) == []
+    b["params/w"][1, 2] = np.nextafter(b["params/w"][1, 2], np.float32(np.inf))
+    assert bits_equal(a, b) == ["params/w"]
+    # -0.0 == 0.0 as numbers, not as bits; a missing key or another shape differs too
+    c = {**a, "rows": np.zeros((2, 12), np.float32)}
+    d = {**a, "rows": -np.zeros((2, 12), np.float32)}
+    assert bits_equal(c, d) == ["rows"]
+    assert bits_equal(a, {k: v for k, v in a.items() if k != "step"}) == ["step"]
+    assert bits_equal(a, {**a, "rows": a["rows"].reshape(12, 2)}) == ["rows"]
