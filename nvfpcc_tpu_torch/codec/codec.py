@@ -29,6 +29,7 @@ this needs the cuDNN settings of ``device.set_numerics``.
 
 from __future__ import annotations
 
+import itertools
 import os
 import pickle
 import warnings
@@ -45,6 +46,7 @@ from nvfpcc_tpu_torch.config import CodecConfig, ModelConfig
 from nvfpcc_tpu_torch.device import set_numerics
 from nvfpcc_tpu_torch.models import decoder as M
 from nvfpcc_tpu_torch.octree import partition as OT
+from nvfpcc_tpu_torch.utils import trace
 from nvfpcc_tpu_torch.utils.params import params_from_numpy
 
 PACK_FORMAT_VERSION = 4
@@ -52,6 +54,7 @@ _DECODABLE_VERSIONS = (1, 2, 3, 4)
 RECON_BATCH = 128
 RECON_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 TABLE_MODES = ("gmm", "factorized")  # latent modes coded under per-channel model tables
+_DECODES = itertools.count()  # the request of each decode's spans
 
 
 def encode_origins(origins: np.ndarray, depth: int, level: int) -> dict:
@@ -113,11 +116,12 @@ def _recon_chunks(decoder: M.CompDecoder, latents: np.ndarray):
     n = latents.shape[0]
     batch = min(RECON_BATCH, max(n, 1))
     for i in range(0, n, batch):
-        chunk = np.asarray(latents[i : i + batch], np.float32)
-        pad = batch - chunk.shape[0]
-        if pad:
-            chunk = np.concatenate([chunk, np.zeros((pad,) + chunk.shape[1:], np.float32)])
-        occ = M.reconstruct(decoder, torch.as_tensor(chunk, device=device))[..., 0]
+        with trace.span("codec.recon.forward", device=True):
+            chunk = np.asarray(latents[i : i + batch], np.float32)
+            pad = batch - chunk.shape[0]
+            if pad:
+                chunk = np.concatenate([chunk, np.zeros((pad,) + chunk.shape[1:], np.float32)])
+            occ = M.reconstruct(decoder, torch.as_tensor(chunk, device=device))[..., 0]
         yield i, occ[: batch - pad]
 
 
@@ -137,15 +141,18 @@ def reconstruct_points(
     come back. ``torch.nonzero`` yields ascending flat (C) order per batch,
     and batches are in block order, so the point order equals
     :func:`extract_points` on the full field."""
-    if latents.shape[0] == 0:
-        return np.zeros((0, 3), np.int64)
-    parts = []
-    for start, occ in _recon_chunks(decoder, latents):
-        idx = torch.nonzero(occ > thh)
-        idx[:, 0] += start
-        parts.append(idx.cpu().numpy())
-    idx = np.concatenate(parts).astype(np.int64)
-    return idx[:, 1:] + np.asarray(origins, np.int64)[idx[:, 0]]
+    with trace.span("codec.recon"):
+        if latents.shape[0] == 0:
+            return np.zeros((0, 3), np.int64)
+        parts = []
+        for start, occ in _recon_chunks(decoder, latents):
+            with trace.span("codec.recon.extract"):
+                idx = torch.nonzero(occ > thh)
+                idx[:, 0] += start
+                parts.append(idx.cpu().numpy())
+        with trace.span("codec.recon.assemble"):
+            idx = np.concatenate(parts).astype(np.int64)
+            return idx[:, 1:] + np.asarray(origins, np.int64)[idx[:, 0]]
 
 
 def extract_points(occ: np.ndarray, origins: np.ndarray, thh: float) -> np.ndarray:
@@ -292,20 +299,26 @@ def decode(pack: dict, device) -> Tuple[np.ndarray, dict]:
     rebuilt from the model metadata)."""
     if pack.get("format_version") not in _DECODABLE_VERSIONS:
         raise ValueError(f"unsupported pack format: {pack.get('format_version')}")
-    mc = pack["model"]
-    spec = model_spec(ModelConfig(
-        ch=int(mc["ch"]), chanstr=mc["chanstr"], seed_tag=mc["seed_tag"],
-        entropy_mode=mc.get("entropy_mode", "channel"),
-        ctx_hidden=int(mc.get("ctx_hidden", M.CTX_HIDDEN)), ctx_tail=int(mc.get("ctx_tail", 0)),
-    ))
-    recon_dtype = str(pack["codec"].get("recon_dtype", "f32"))
-    decoder = decoder_from_tree(spec, W.unpack_weights(pack["net_weight_pack"]), device, recon_dtype)
-    latents = decode_latent_pack(spec, pack["latent_pack"])
-    origins = decode_origins(
-        pack["origins"], int(pack["codec"]["depth"]), int(pack["codec"]["level"])
-    )
-    thh = float(pack["codec"]["thh"])
-    points = reconstruct_points(decoder, latents, origins, thh)
+    with trace.span("codec.decode", request=next(_DECODES)):
+        mc = pack["model"]
+        spec = model_spec(ModelConfig(
+            ch=int(mc["ch"]), chanstr=mc["chanstr"], seed_tag=mc["seed_tag"],
+            entropy_mode=mc.get("entropy_mode", "channel"),
+            ctx_hidden=int(mc.get("ctx_hidden", M.CTX_HIDDEN)), ctx_tail=int(mc.get("ctx_tail", 0)),
+        ))
+        recon_dtype = str(pack["codec"].get("recon_dtype", "f32"))
+        with trace.span("codec.unpack_weights"):
+            tree = W.unpack_weights(pack["net_weight_pack"])
+        with trace.span("codec.decoder"):
+            decoder = decoder_from_tree(spec, tree, device, recon_dtype)
+        with trace.span("codec.latents"):
+            latents = decode_latent_pack(spec, pack["latent_pack"])
+        with trace.span("codec.origins"):
+            origins = decode_origins(
+                pack["origins"], int(pack["codec"]["depth"]), int(pack["codec"]["level"])
+            )
+        thh = float(pack["codec"]["thh"])
+        points = reconstruct_points(decoder, latents, origins, thh)
     info = {
         "n_blocks": int(len(origins)),
         "n_points_rec": int(len(points)),
@@ -360,5 +373,5 @@ class _RestrictedUnpickler(pickle.Unpickler):
 
 def load_pack(path: str) -> dict:
     """Load a pack with the restricted unpickler."""
-    with open(path, "rb") as f:
+    with trace.span("codec.load_pack"), open(path, "rb") as f:
         return _RestrictedUnpickler(f).load()

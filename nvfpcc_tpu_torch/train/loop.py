@@ -59,6 +59,7 @@ from nvfpcc_tpu_torch.parallel import mesh as pm
 from nvfpcc_tpu_torch.train import losses as L
 from nvfpcc_tpu_torch.train.graphs import capture
 from nvfpcc_tpu_torch.utils import checkpoint as ckpt_util
+from nvfpcc_tpu_torch.utils import trace
 from nvfpcc_tpu_torch.utils.params import params_from_numpy, params_to_numpy
 
 # the order of the per-step metric vector (rd_loss's dict, stacked on the
@@ -486,7 +487,10 @@ class EpochProgram:
 
     With a ``shard`` (block-DP) the epoch is the rank's, always eager
     (:func:`_shard_net_steps`; a collective cannot be captured over gloo,
-    and the rank's batches are cut on the host)."""
+    and the rank's batches are cut on the host).
+
+    While a profiler records, the epoch's stages are spans
+    (``utils/trace.py``), all outside the captured steps."""
 
     def __init__(self, state: TrainState, cfg: TrainConfig, gt, dist, block_valid, n_total_pts: float,
                  noise: NoiseSource, emb_chunks: int = 1, shard: Optional[Shard] = None, graphs: bool = False):
@@ -557,55 +561,63 @@ class EpochProgram:
         if q not in self.graphs:
             self.graphs.clear()
             mutated, gens = [self.rows, self.i], [self.noise.gen]
-            net = capture(lambda: self._net_grad(q), mutated, gens, stream=self.stream)
-            emb = capture(lambda: self._emb_grad(q), mutated, gens, pool=net.pool(), stream=self.stream)
+            with trace.span("train.graph_capture"):
+                net = capture(lambda: self._net_grad(q), mutated, gens, stream=self.stream)
+            with trace.span("train.graph_capture"):
+                emb = capture(lambda: self._emb_grad(q), mutated, gens, pool=net.pool(), stream=self.stream)
             self.graphs[q] = (net, emb)
         return self.graphs[q]
 
     def net_steps(self, epoch: int, q: int, idx, mask) -> None:
         """The epoch's per-batch net steps over the plan ``idx``/``mask``
         (:func:`batch_plan`'s, host or device); the rows land in ``rows``."""
-        self._load_plan(idx, mask)
-        graph = self._graphs_for(q)[0] if self.use_graphs else None
-        n, opt = self.idx.shape[0], self.state.opt
-        for i in range(n):
-            if graph is None:
-                self._net_grad(q)
-            else:
-                graph.replay()
-            for group in opt.param_groups:
-                group["lr"] = net_lr(self.cfg, n, epoch * n + i)
-            opt.step()
+        with trace.span("train.net_steps", device=True):
+            with trace.span("train.load_plan"):
+                self._load_plan(idx, mask)
+            graph = self._graphs_for(q)[0] if self.use_graphs else None
+            n, opt = self.idx.shape[0], self.state.opt
+            for i in range(n):
+                with trace.span("train.net_grad", device=True):
+                    if graph is None:
+                        self._net_grad(q)
+                    else:
+                        graph.replay()
+                with trace.span("train.adam", device=True):
+                    for group in opt.param_groups:
+                        group["lr"] = net_lr(self.cfg, n, epoch * n + i)
+                    opt.step()
 
     def emb_update(self, epoch: int, q: int) -> None:
         """The once-per-epoch full-set embedding update (after the epoch's
         :meth:`net_steps`, which made the buffers)."""
-        if self.use_graphs:
-            self._graphs_for(q)[1].replay()
-        else:
-            self._emb_grad(q)
-        for group in self.state.emb_opt.param_groups:
-            group["lr"] = emb_lr(self.cfg, epoch)
-        self.state.emb_opt.step()
+        with trace.span("train.emb_update", device=True):
+            if self.use_graphs:
+                self._graphs_for(q)[1].replay()
+            else:
+                self._emb_grad(q)
+            for group in self.state.emb_opt.param_groups:
+                group["lr"] = emb_lr(self.cfg, epoch)
+            self.state.emb_opt.step()
 
     def run(self, epoch: int, q: int, idx, mask) -> torch.Tensor:
         """One whole epoch; returns its metric rows on the device (a copy)."""
-        self.noise.start_epoch(epoch, idx.shape[0])
-        if self.shard is None:
-            self.net_steps(epoch, q, idx, mask)
-            self.emb_update(epoch, q)
-            rows = self.rows.clone()
-        else:
-            dev = self.state.emb.device
-            rows = _shard_net_steps(self.state, self.cfg, self.gt, self.dist, idx.to(dev).long(), mask.to(dev),
-                                    self.n_total_pts, q, self.noise, epoch, self.shard)
-            s = self.state
-            s.emb.grad = emb_full_grad(s.net, self.cfg, s.emb, self.gt, self.dist, self.block_valid,
-                                       self.n_total_pts, q, self.noise, shard=self.shard)
-            for group in s.emb_opt.param_groups:
-                group["lr"] = emb_lr(self.cfg, epoch)
-            s.emb_opt.step()
-            s.emb.grad = None
+        with trace.span("train.epoch", request=epoch):
+            self.noise.start_epoch(epoch, idx.shape[0])
+            if self.shard is None:
+                self.net_steps(epoch, q, idx, mask)
+                self.emb_update(epoch, q)
+                rows = self.rows.clone()
+            else:
+                dev = self.state.emb.device
+                rows = _shard_net_steps(self.state, self.cfg, self.gt, self.dist, idx.to(dev).long(),
+                                        mask.to(dev), self.n_total_pts, q, self.noise, epoch, self.shard)
+                s = self.state
+                s.emb.grad = emb_full_grad(s.net, self.cfg, s.emb, self.gt, self.dist, self.block_valid,
+                                           self.n_total_pts, q, self.noise, shard=self.shard)
+                for group in s.emb_opt.param_groups:
+                    group["lr"] = emb_lr(self.cfg, epoch)
+                s.emb_opt.step()
+                s.emb.grad = None
         self.state.epoch = epoch
         return rows
 
