@@ -1,9 +1,14 @@
 """On-card smoke test of the PyTorch port (``nvfpcc_tpu_torch``).
 
-Builds the EDT kernel from ``nvfpcc_tpu_torch/csrc``, holds it against its
-plain PyTorch version on the card (int16 and int32 lanes, empty and full
+Builds the CUDA kernels from ``nvfpcc_tpu_torch/csrc``, holds the EDT against
+its plain PyTorch version on the card (int16 and int32 lanes, empty and full
 grids, single corner voxels), times it at the main path's shapes beside its
-plain version and its bytes bound, then drives the README workflow at the
+plain version and its bytes bound; holds the transposed conv kernel against
+its plain version and deterministic cuDNN at each of the decoder's
+transposed layers and the direct convs' input gradients it computes, and
+times each at the main path's batches (128 in f32 for a reconstruction, 16
+and 917 in bf16 for a net step and the embedding update) beside its FFMA or
+bytes bound, its plain version and cuDNN (``library_ms``); then drives the README workflow at the
 flagship width (ch=3, chanstr 8,16,8,8, 32^3 blocks, lambda 200, batch 16,
 channel entropy mode, format-v4 pack) through the port's CLI on a synthetic
 vox10 cloud (1,314 blocks):
@@ -361,6 +366,86 @@ def phase_kernel(torch, K) -> dict:
     return {"max_abs_err": max_err, "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": "bytes", "library_ms": None,
             "timed": timed}
+
+
+# the transposed conv kernel at the main path's batches: recon 128 (f32),
+# the net step 16 and the embedding update 917 (bf16). Transposed layers:
+# (layer, input edge, Cin, Cout, padding, output_padding); direct convs whose
+# input gradient the kernel computes: (layer, output edge, Cout, Cin, k,
+# padding), the gradient being a stride-1 transposed conv of the output edge
+CONV_T_LAYERS = (("up0", 2, 3, 8, 2, 1), ("conv0", 4, 8, 16, 2, 1), ("up1", 8, 16, 8, 0, 0),
+                 ("up2", 16, 8, 8, 0, 0))
+CONV_DGRAD_LAYERS = (("conv1.dgrad", 16, 8, 8, 4, 0), ("conv2.dgrad", 32, 8, 8, 4, 0),
+                     ("conv2_cls.dgrad", 32, 1, 8, 3, 1))
+CONV_BATCHES = (("f32", 128), ("bf16", 16), ("bf16", 917))
+F32_FFMA_PER_S = 67e12
+
+
+def phase_conv_kernel(torch, CT) -> dict:
+    """The transposed conv kernel against its plain version and cuDNN
+    (deterministic, TF32 off) at each layer, then timed at the main path's
+    batches beside its bound (f32 FFMA operations or bytes, the larger),
+    the plain version and ``library_ms``: deterministic cuDNN computing the
+    same function (``F.conv_transpose3d``; for an input gradient
+    ``aten.convolution_backward`` of the direct conv)."""
+    import torch.nn.functional as F
+    from nvfpcc_tpu_torch.device import set_numerics
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    set_numerics()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    cases = [(name, edge, cin, cout, 5, 2, pad, opad, False) for name, edge, cin, cout, pad, opad in CONV_T_LAYERS]
+    cases += [(name, edge, cin, cout, k, 1, pad, 0, True) for name, edge, cin, cout, k, pad in CONV_DGRAD_LAYERS]
+    for name, edge, cin, cout, k, stride, pad, opad, dgrad in cases:
+        for dtype_name, n in CONV_BATCHES:
+            dt = torch.float32 if dtype_name == "f32" else torch.bfloat16
+            x = torch.randn((n, edge, edge, edge, cin), generator=gen, device="cuda").to(dt)
+            w = (torch.randn((k, k, k, cin, cout), generator=gen, device="cuda") * 0.1).to(dt)
+            kernel = lambda: CT.launch(x, w, None, stride, pad, opad)  # noqa: E731
+            got = kernel()
+            if dgrad:  # the direct conv (Cout -> Cin) whose input gradient this is
+                conv_in = torch.empty((n, *got.shape[1:4], cout), dtype=dt, device="cuda").permute(0, 4, 1, 2, 3)
+                wd = w.transpose(3, 4).permute(4, 3, 0, 1, 2)
+
+                def library():
+                    return torch.ops.aten.convolution_backward(
+                        x.permute(0, 4, 1, 2, 3), conv_in, wd, None, [1] * 3, [pad] * 3, [1] * 3, False, [0] * 3,
+                        1, [True, False, False])[0].permute(0, 2, 3, 4, 1)
+            else:
+                def library():
+                    return F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w.permute(3, 4, 0, 1, 2), None, stride,
+                                              pad, opad).permute(0, 2, 3, 4, 1)
+            want, plain = library(), CT.conv_transpose3d_ref(x[:8], w, None, stride, pad, opad)
+            torch.cuda.synchronize()
+            scale = float(want.float().abs().max())
+            err = float((got.float() - want.float()).abs().max()) / scale
+            err_plain = float((got[:8].float() - plain.float()).abs().max()) / scale
+            bound = 2e-5 if dt == torch.float32 else 2.0**-7
+            if err > bound or err_plain > bound:
+                fail(f"conv kernel {name} {dtype_name} n={n}: {err:.3g} from cuDNN, {err_plain:.3g} from the plain "
+                     f"version (bound {bound:.3g} of the largest output)")
+            del want, plain
+            macs = CT.useful_macs(tuple(x.shape[1:4]), cin, cout, k, stride, pad, opad) * n
+            nbytes = (x.numel() + w.numel() + got.numel()) * x.element_size()
+            ops_ms, bytes_ms = 2 * macs / F32_FFMA_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            reps = 20 if n < 900 else 5
+            ms = cuda_ms(kernel, reps)
+            row = {"layer": name, "dtype": dtype_name, "n": n, "ms": ms, "bound_ms": max(ops_ms, bytes_ms),
+                   "bound_by": "ffma" if ops_ms >= bytes_ms else "bytes", "share_of_bound": max(ops_ms, bytes_ms) / ms,
+                   "plain_ms": cuda_ms(lambda: CT.conv_transpose3d_ref(x, w, None, stride, pad, opad), 1),
+                   "library_ms": cuda_ms(library, reps), "ms_again": cuda_ms(kernel, reps),
+                   "err_vs_library": err, "err_vs_plain": err_plain}
+            log(f"conv kernel {name} {dtype_name} n={n}: {ms:.4f} / {row['ms_again']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {100 * row['share_of_bound']:.1f}%), plain "
+                f"{row['plain_ms']:.3f} ms, cuDNN {row['library_ms']:.4f} ms, err {err:.2e} / {err_plain:.2e}")
+            rows.append(row)
+            del x, w, got
+            torch.cuda.empty_cache()
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic) = flags
+    return {"timed": rows}
 
 
 def train_rows(path: str) -> list:
@@ -1379,6 +1464,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     sys.path.insert(0, ROOT)
     from nvfpcc_tpu_torch.device import card_line
+    from nvfpcc_tpu_torch.kernels import conv_transpose as CT
     from nvfpcc_tpu_torch.kernels import edt as K
 
     # 1. device
@@ -1390,6 +1476,8 @@ def main() -> int:
 
     # 2-3. kernel build and kernel vs plain
     kstats = phase_kernel(torch, K)
+    cstats = phase_conv_kernel(torch, CT)
+    CT.LAUNCHES = 0
 
     # 4. the serving path at full width
     from scripts.synth_cloud import bumpy_sphere_cloud
@@ -1580,6 +1668,13 @@ def main() -> int:
                               "ctx_eval": ctx_launches, "bf16_eval": bf16_launches, "modes_eval": modes_launches,
                               "eval_d2": d2_launches, "mesh_eval": mesh_launches, "realdata": realdata_launches},
         **kstats,
+    }, {
+        "name": "conv_transpose3d",
+        "route": "cuda",
+        "source": "nvfpcc_tpu_torch/csrc/conv_transpose.cu",
+        "replaces": None,
+        "launches": CT.LAUNCHES,
+        **cstats,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -348,7 +348,7 @@ int nvfpcc_edt3d(const uint8_t* occ, int32_t* out, void* scratch, long long D, l
   return (int)cudaErrorInvalidValue;
 }
 
-const char* nvfpcc_edt_error_string(int code) {
+const char* nvfpcc_kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -9,9 +9,8 @@ the nearest occupied voxel, saturated at ``radius**2 + 1``.
   launches, one per axis: an O(1)-per-voxel row pass, then two register-
   blocked min-plus passes on packed int16 lanes, or int32 lanes above
   R = 127; see the source for the design). It is compiled with ``nvcc``
-  for ``sm_90a`` into a plain-C shared library under
-  ``nvfpcc_tpu_torch/_build/`` at first use, keyed by a hash of the
-  sources, and bound with ``ctypes``. A build or launch failure raises;
+  for ``sm_90a`` into the port's plain-C kernel library at first use
+  (``kernels/build.py``) and bound with ``ctypes``. A build or launch failure raises;
   there is no fallback.
 - A CPU tensor goes to ``squared_edt_3d_ref``, the plain PyTorch version
   (a port of the XLA shift-and-min chain, ``nvfpcc_tpu/grids/edt.py``).
@@ -22,83 +21,18 @@ tensor), so a caller can show that a path really went through the kernel.
 
 from __future__ import annotations
 
-import ctypes
-import glob
-import hashlib
-import os
-import subprocess
-import threading
-
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+from nvfpcc_tpu_torch.kernels.build import (  # noqa: F401  (the build's names, as before)
+    BUILD_DIR, CSRC_DIR, NVCC_FLAGS, build_library, error_string, library_path, load_library,
 )
+
 # shared tile of the strided passes: (256 + 2R) x 32 words <= 227 KB
 MAX_RADIUS = 780
 # the row pass keeps 12 bytes per 32 voxels of a row for each of its 8 warps
 MAX_ROW = 1 << 16
 
 LAUNCHES = 0
-
-_lib = None
-_lock = threading.Lock()
-
-
-def library_path() -> str:
-    """Where the build of the current ``csrc/*.cu`` sources lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))):
-        h.update(os.path.basename(src).encode())
-        with open(src, "rb") as f:
-            h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libnvfpcc_kernels_{h.hexdigest()[:16]}.so")
-
-
-def build_library() -> str:
-    """Compile ``csrc/*.cu`` with nvcc unless this source hash is built.
-    Returns the library path; ptxas' register/shared-memory report is kept
-    beside it as ``<lib>.log``. Raises if nvcc is missing or fails."""
-    lib = library_path()
-    if os.path.exists(lib):
-        return lib
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
-    if nvcc is None or not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (no CUDA toolkit); cannot build the EDT kernel")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
-    r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *sources], capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n{r.stdout}\n{r.stderr}")
-    with open(lib + ".log", "w") as f:
-        f.write(r.stdout + r.stderr)
-    os.replace(tmp, lib)
-    return lib
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_library())
-            lib.nvfpcc_edt3d.restype = ctypes.c_int
-            lib.nvfpcc_edt3d.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # occ, out, scratch
-                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # D, H, W
-                ctypes.c_int, ctypes.c_int,  # radius, lane_bits
-                ctypes.c_void_p,  # stream
-            ]
-            lib.nvfpcc_edt_error_string.restype = ctypes.c_char_p
-            lib.nvfpcc_edt_error_string.argtypes = [ctypes.c_int]
-            _lib = lib
-        return _lib
 
 
 def _check(occ: torch.Tensor, radius: int) -> None:
@@ -133,7 +67,7 @@ def squared_edt_3d(occ: torch.Tensor, radius: int) -> torch.Tensor:
     d, h, w = occ.shape
     if d * h >= 2**31 or w > MAX_ROW or d > 65535:
         raise ValueError(f"grid {tuple(occ.shape)} is too large for one launch")
-    lib = _load()
+    lib = load_library()
     bits = lane_bits(radius)
     out = torch.empty(occ.shape, dtype=torch.int32, device=occ.device)
     scratch = torch.empty(occ.shape, dtype=torch.int16 if bits == 16 else torch.int32, device=occ.device)
@@ -143,7 +77,7 @@ def squared_edt_3d(occ: torch.Tensor, radius: int) -> torch.Tensor:
             occ.data_ptr(), out.data_ptr(), scratch.data_ptr(), d, h, w, radius, bits, stream
         )
     if rc != 0:
-        raise RuntimeError(f"EDT kernel launch failed: {lib.nvfpcc_edt_error_string(rc).decode()}")
+        raise RuntimeError(f"EDT kernel launch failed: {error_string(rc)}")
     LAUNCHES += 1
     return out
 

@@ -21,6 +21,11 @@ Masked convs (the latent context model, ``entropy_mode`` ctx / ctx_ar): a
 raster order (or gates the center tap by channel groups); the mask is
 applied after the seeded init is added back, as the JAX package does.
 
+On a CUDA card the port's hand-written transposed conv kernel
+(``kernels/conv_transpose.py``) runs the transposed convs' forward and the
+direct convs' input gradient (itself a transposed conv); cuDNN the rest.
+On the CPU every conv is ``F.conv3d``/``F.conv_transpose3d``.
+
 Mixed-precision training (``compute_dtype="bf16"``): the master residual,
 the q-phase quantization and the seeded-init add stay f32
 (``effective_kernel``); then activation, effective kernel and bias are cast
@@ -43,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nvfpcc_tpu_torch.kernels.conv_transpose import Conv3d, conv_transpose3d
 from nvfpcc_tpu_torch.utils import seeds
 from nvfpcc_tpu_torch.ops.ste import bypass_round16
 
@@ -172,8 +178,23 @@ def _run_conv(conv, x, w, b, compute_dtype):
     return conv(x, w, None).permute(0, 2, 3, 4, 1) + b.to(cd)
 
 
+def _run_cuda(fn, x, kernel, b, compute_dtype, *conv):
+    """``fn(x, kernel, bias, *conv)`` (a ``kernels/conv_transpose.py``
+    autograd Function's ``apply``) on NDHWC ``x`` and the raw kernel in the
+    compute dtype, with ``_run_conv``'s bias rule."""
+    cd = as_compute_dtype(compute_dtype) or x.dtype
+    x, kernel = x.to(cd), kernel.to(cd)
+    if cd == torch.float32:
+        return fn(x, kernel, b, *conv)
+    return fn(x, kernel, None, *conv) + b.to(cd)
+
+
 def conv3d_ndhwc(x, kernel, b, stride: int, padding: int, compute_dtype=None) -> torch.Tensor:
-    """Direct conv: NDHWC activation, DHWIO kernel."""
+    """Direct conv: NDHWC activation, DHWIO kernel. On a CUDA tensor cuDNN
+    runs the forward and the weight gradient, the port's transposed conv
+    kernel the input gradient (``kernels/conv_transpose.py:Conv3d``)."""
+    if x.device.type == "cuda":
+        return _run_cuda(Conv3d.apply, x, kernel, b, compute_dtype, stride, padding)
     return _run_conv(
         lambda x, w, b: F.conv3d(x, w, b, stride, padding),
         x.permute(0, 4, 1, 2, 3), kernel.permute(4, 3, 0, 1, 2), b, compute_dtype,
@@ -183,7 +204,11 @@ def conv3d_ndhwc(x, kernel, b, stride: int, padding: int, compute_dtype=None) ->
 def conv_transpose3d_ndhwc(x, kernel, b, stride: int, padding: int, output_padding: int,
                            compute_dtype=None):
     """Transposed conv (torch semantics): NDHWC activation, DHWIO kernel with
-    I = the transposed op's input channels; no flip."""
+    I = the transposed op's input channels; no flip. On a CUDA tensor the
+    forward is the port's hand-written kernel (``kernels/conv_transpose.py``;
+    cuDNN runs its backward); on the CPU ``F.conv_transpose3d``."""
+    if x.device.type == "cuda":
+        return _run_cuda(conv_transpose3d, x, kernel, b, compute_dtype, stride, padding, output_padding)
     return _run_conv(
         lambda x, w, b: F.conv_transpose3d(x, w, b, stride, padding, output_padding),
         x.permute(0, 4, 1, 2, 3), kernel.permute(3, 4, 0, 1, 2), b, compute_dtype,
