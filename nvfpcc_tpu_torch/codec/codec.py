@@ -13,8 +13,9 @@ the JAX package's in both directions. Latent packs by entropy mode:
   same f32 params the pack carries (:func:`_model_latent_tables`);
 - ctx / ctx_ar (format v3): the ctx payload (the masked predictor's kernel
   residual ints and biases), with per-symbol tables that the host's
-  integer-exact predictor (``coder/ctx_coder.py``) derives from the
-  already-coded prefix, the same on both ends.
+  integer-exact predictor (``coder/ctx_coder.py``; the decoder's steps
+  through ``coder/ctx_steps.py``) derives from the already-coded prefix,
+  the same on both ends.
 
 ``codec.recon_dtype: "bf16"`` (written only when asked for; absent means
 f32) runs the reconstruction on a decoder cast to bfloat16; the occupancy
@@ -41,6 +42,7 @@ import torch
 
 from nvfpcc_tpu_torch.codec import weights as W
 from nvfpcc_tpu_torch.coder import ctx_coder as CTX
+from nvfpcc_tpu_torch.coder import ctx_steps as CTX_STEPS
 from nvfpcc_tpu_torch.coder import range_coder as RC
 from nvfpcc_tpu_torch.config import CodecConfig, ModelConfig
 from nvfpcc_tpu_torch.device import set_numerics
@@ -110,19 +112,20 @@ def _model_latent_tables(mode: str, params: dict, ch: int) -> np.ndarray:
 @torch.no_grad()
 def _recon_chunks(decoder: M.CompDecoder, latents: np.ndarray):
     """(start, occupancy (b, B, B, B) on the device) per fixed-size batch of
-    ``RECON_BATCH``; the last batch is zero-padded on both encode and decode."""
+    ``RECON_BATCH``; the last batch is zero-padded on both encode and decode.
+    The latents go to the device in one copy, so no batch waits for the
+    host (a copy from pageable memory waits for the stream)."""
     set_numerics()
     device = decoder.up0.kernel.device
     n = latents.shape[0]
     batch = min(RECON_BATCH, max(n, 1))
+    padded = np.zeros((-(-n // batch) * batch,) + latents.shape[1:], np.float32)
+    padded[:n] = latents
+    padded = torch.as_tensor(padded, device=device)
     for i in range(0, n, batch):
         with trace.span("codec.recon.forward", device=True):
-            chunk = np.asarray(latents[i : i + batch], np.float32)
-            pad = batch - chunk.shape[0]
-            if pad:
-                chunk = np.concatenate([chunk, np.zeros((pad,) + chunk.shape[1:], np.float32)])
-            occ = M.reconstruct(decoder, torch.as_tensor(chunk, device=device))[..., 0]
-        yield i, occ[: batch - pad]
+            occ = M.reconstruct(decoder, padded[i : i + batch])[..., 0]
+        yield i, occ[: min(batch, n - i)]
 
 
 def reconstruct_all(decoder: M.CompDecoder, latents: np.ndarray) -> np.ndarray:
@@ -137,22 +140,28 @@ def reconstruct_points(
     origins: np.ndarray,
     thh: float,
 ) -> np.ndarray:
-    """Reconstruct + threshold + extract on the device; only the indices
-    come back. ``torch.nonzero`` yields ascending flat (C) order per batch,
-    and batches are in block order, so the point order equals
-    :func:`extract_points` on the full field."""
+    """Reconstruct + threshold + extract on the device; only the points
+    come back, in one copy into one host array. The batches' thresholds
+    fill one occupancy mask, so the host waits for the device once, at
+    ``torch.nonzero``, which yields ascending flat (C) order: the point
+    order of :func:`extract_points` on the full field."""
     with trace.span("codec.recon"):
-        if latents.shape[0] == 0:
+        n = latents.shape[0]
+        if n == 0:
             return np.zeros((0, 3), np.int64)
-        parts = []
+        device = decoder.up0.kernel.device
+        mask = None
         for start, occ in _recon_chunks(decoder, latents):
             with trace.span("codec.recon.extract"):
-                idx = torch.nonzero(occ > thh)
-                idx[:, 0] += start
-                parts.append(idx.cpu().numpy())
+                if mask is None:
+                    mask = torch.empty((n,) + tuple(occ.shape[1:]), dtype=torch.bool, device=device)
+                torch.gt(occ, thh, out=mask[start : start + occ.shape[0]])
+        idx = torch.nonzero(mask)  # the host's one wait for the batches
         with trace.span("codec.recon.assemble"):
-            idx = np.concatenate(parts).astype(np.int64)
-            return idx[:, 1:] + np.asarray(origins, np.int64)[idx[:, 0]]
+            points = idx[:, 1:] + torch.as_tensor(np.asarray(origins, np.int64), device=device)[idx[:, 0]]
+            out = np.empty(tuple(points.shape), np.int64)
+            torch.from_numpy(out).copy_(points)
+            return out
 
 
 def extract_points(occ: np.ndarray, origins: np.ndarray, thh: float) -> np.ndarray:
@@ -199,12 +208,14 @@ def encode(
         ctx_payload = CTX.build_ctx_payload(spec, qparams["entropy"], codec_cfg.qp)
         ctx_ints = CTX.ctx_ints_from_payload(spec, ctx_payload)
         channel_ar = spec.entropy_mode == "ctx_ar"
-        enc = CTX.encode_latents_ctx(lat_int, ctx_ints, channel_ar)
-        if enc["n_clamped"]:
-            warnings.warn(f"{enc['n_clamped']} ctx latent residual(s) clamped to the alphabet")
-        rt = CTX.decode_latents_ctx(enc["stream"], enc["shape"], ctx_ints, channel_ar)
-        if not np.array_equal(rt, enc["coded"]):
-            raise RuntimeError("ctx range coder round-trip failed")
+        with trace.span("codec.encode.ctx"):
+            enc = CTX.encode_latents_ctx(lat_int, ctx_ints, channel_ar)
+            trace.count(**_ctx_counts(spec.entropy_mode, enc["shape"]), clamped=enc["n_clamped"])
+            if enc["n_clamped"]:
+                warnings.warn(f"{enc['n_clamped']} ctx latent residual(s) clamped to the alphabet")
+            rt = CTX_STEPS.decode_latents_ctx(enc["stream"], enc["shape"], ctx_ints, channel_ar, device)
+            if not np.array_equal(rt, enc["coded"]):
+                raise RuntimeError("ctx range coder round-trip failed")
         lat_int = enc["coded"]
         latent_pack = {
             "mode": spec.entropy_mode, "stream": enc["stream"], "shape": enc["shape"],
@@ -312,7 +323,7 @@ def decode(pack: dict, device) -> Tuple[np.ndarray, dict]:
         with trace.span("codec.decoder"):
             decoder = decoder_from_tree(spec, tree, device, recon_dtype)
         with trace.span("codec.latents"):
-            latents = decode_latent_pack(spec, pack["latent_pack"])
+            latents = decode_latent_pack(spec, pack["latent_pack"], device)
         with trace.span("codec.origins"):
             origins = decode_origins(
                 pack["origins"], int(pack["codec"]["depth"]), int(pack["codec"]["level"])
@@ -328,15 +339,26 @@ def decode(pack: dict, device) -> Tuple[np.ndarray, dict]:
     return points, info
 
 
-def decode_latent_pack(spec: M.ModelSpec, latent_pack: dict) -> np.ndarray:
-    """The coded integer latents (N, 2, 2, 2, ch) as float32."""
+def _ctx_counts(mode: str, shape) -> dict:
+    """What a ctx-mode stream of latents ``shape`` codes: its mode, its
+    sequential coding steps (8 positions; times ch in ``ctx_ar``) and its
+    symbols."""
+    return {"mode": mode, "steps": 8 * int(shape[-1]) if mode == "ctx_ar" else 8,
+            "symbols": int(np.prod(shape))}
+
+
+def decode_latent_pack(spec: M.ModelSpec, latent_pack: dict, device="cpu") -> np.ndarray:
+    """The coded integer latents (N, 2, 2, 2, ch) as float32; a ctx
+    stream's predictions run on ``device``."""
     mode = latent_pack.get("mode")
     shape = tuple(latent_pack["shape"])
     if mode in M.CTX_MODES:
-        ctx_ints = CTX.ctx_ints_from_payload(spec, latent_pack["ctx"])
-        return CTX.decode_latents_ctx(
-            latent_pack["stream"], shape, ctx_ints, channel_ar=mode == "ctx_ar"
-        ).astype(np.float32)
+        with trace.span("codec.latents.ctx"):
+            trace.count(**_ctx_counts(mode, shape))
+            ctx_ints = CTX.ctx_ints_from_payload(spec, latent_pack["ctx"])
+            return CTX_STEPS.decode_latents_ctx(
+                latent_pack["stream"], shape, ctx_ints, mode == "ctx_ar", device
+            ).astype(np.float32)
     if mode in TABLE_MODES:
         cum = _model_latent_tables(mode, latent_pack["params"], shape[-1])
         return RC.decode_latents_tables(latent_pack["stream"], shape, cum)

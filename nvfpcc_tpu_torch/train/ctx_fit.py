@@ -23,6 +23,9 @@ the JAX package's ``run_chunk``, one compiled ``lax.scan`` a chunk. TF32
 stays off: reduced-precision matmuls measurably worsened the fitted rate in
 the JAX package.
 
+Each phase is one ``ctx_fit.phase`` span (``utils/trace.py``), outside the
+captured step, counting its ``q`` and the steps it took.
+
 Whatever device fits, the pack is valid: the fitted kernels are quantized
 on the host and both coder ends predict in exact integers, so encode and
 decode agree however the fit's floats were ordered.
@@ -42,6 +45,7 @@ from nvfpcc_tpu_torch.models import decoder as M
 from nvfpcc_tpu_torch.ops import rate
 from nvfpcc_tpu_torch.ops.ste import bypass_round16
 from nvfpcc_tpu_torch.train.graphs import capture, init_adam_state
+from nvfpcc_tpu_torch.utils import trace
 from nvfpcc_tpu_torch.utils.params import params_from_numpy, params_to_numpy
 
 CHUNK = 250  # steps between host fetches (and early-stop checks)
@@ -180,6 +184,7 @@ def fit_ctx_predictor(
             prev = bits
         for p in params:
             p.grad = None
+        trace.count(q=q, steps=count)
         return count
 
     with torch.no_grad():
@@ -187,9 +192,11 @@ def fit_ctx_predictor(
     log(f"[ctx_fit] {spec.entropy_mode} hidden={spec.ctx_hidden}: start {float(bits0):.0f} "
         f"stream bits on {lat_int.shape[0]} blocks ({device})")
     t0 = time.time()
-    n = run_phase(0, steps, lr, f"phase 1 (q0, {steps} steps)")
+    with trace.span("ctx_fit.phase", device=True):
+        n = run_phase(0, steps, lr, f"phase 1 (q0, {steps} steps)")
     if finetune_steps:
-        n += run_phase(2, finetune_steps, finetune_lr, f"phase 2 (q2 STE, {finetune_steps} steps)")
+        with trace.span("ctx_fit.phase", device=True):
+            n += run_phase(2, finetune_steps, finetune_lr, f"phase 2 (q2 STE, {finetune_steps} steps)")
     secs = time.time() - t0  # the last chunk's fetch waited for the device
     log(f"[ctx_fit] {n} steps in {secs:.2f}s ({n / secs:.1f} steps/s)")
     return params_to_numpy(pred)

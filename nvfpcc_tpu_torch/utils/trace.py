@@ -26,19 +26,31 @@ Spans of the program, by path:
 - ``codec.decode`` (request: the process's decode count), over
   ``codec.unpack_weights``, ``codec.decoder`` (the seeded decoder rebuilt
   and copied to the device), ``codec.latents``, ``codec.origins`` and
-  ``codec.recon``;
+  ``codec.recon``; in the ctx modes ``codec.latents`` is over
+  ``codec.latents.ctx`` (the host ctx coder's decode), which counts the
+  mode, its coding steps (8, or 8 * ch in ``ctx_ar``), its symbols and
+  the distinct tables they used;
+- ``codec.encode.ctx`` (no request; in an encode in the ctx modes): the
+  ctx coder's encode and its round-trip decode, counted as
+  ``codec.latents.ctx`` with the symbols clamped to the alphabet;
 - ``codec.recon`` (also in ``encode``), over one ``codec.recon.forward``
-  (device: the batch's upload and the decoder's forward) and one
-  ``codec.recon.extract`` (the threshold, ``torch.nonzero``, the copy to
-  the host) per batch, then ``codec.recon.assemble`` (the points put
-  together on the host);
+  (device: the decoder's forward of a batch of latents already on the
+  device) and one ``codec.recon.extract`` (the batch's threshold into the
+  occupancy mask) per batch; then the mask's ``torch.nonzero``, the
+  host's one wait for the batches, and ``codec.recon.assemble`` (the
+  block origins added, the points copied to the host);
 - ``train.epoch`` (request: the epoch), over ``train.net_steps`` (device)
   and ``train.emb_update`` (device); ``train.net_steps`` over
   ``train.load_plan``, ``train.graph_capture`` (one per CUDA graph
   captured: a steady epoch has none) and, per batch, ``train.net_grad``
   (device: the gradient's graph replay or eager run) and ``train.adam``
   (device: the learning rate set and the Adam step). A block-DP epoch has
-  ``train.epoch`` alone.
+  ``train.epoch`` alone;
+- ``ctx_fit.phase`` (device), one per phase of the post-hoc ctx predictor
+  fit (``train/ctx_fit.py``), over the phase's capture and its chunks of
+  steps; it counts its ``q`` and the steps it took.
+
+A span's counts (:func:`count`) are set on its record while it is open.
 """
 
 from __future__ import annotations
@@ -63,6 +75,7 @@ class Span:
     host_ns: Optional[int] = None  # None while the span is open
     events: Optional[tuple] = None  # (start, end) CUDA events, until read
     _device_ms: Optional[float] = None
+    counts: Optional[dict] = None  # what the span's work counted (:func:`count`)
 
     def device_ms(self) -> Optional[float]:
         """Milliseconds between the span's CUDA events (waiting for the
@@ -154,6 +167,18 @@ def span(name: str, device: bool = False, request: Optional[int] = None):
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _On(name, device, request)
+
+
+def count(**values) -> None:
+    """Set ``values`` in the counts of the innermost span open in this
+    thread: numbers the span's work counted (steps, symbols) and the label
+    of what it counted (a mode). Nothing while spans are off."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    stack = _STORE.stack()
+    if stack:
+        record = stack[-1].record
+        record.counts = {**(record.counts or {}), **values}
 
 
 def spans() -> List[Span]:

@@ -31,7 +31,8 @@ N_BLOCKS, BATCH = 6, 2
 
 DECODE_PARENTS = {
     "codec.decode": None, "codec.unpack_weights": "codec.decode", "codec.decoder": "codec.decode",
-    "codec.latents": "codec.decode", "codec.origins": "codec.decode", "codec.recon": "codec.decode",
+    "codec.latents": "codec.decode", "codec.latents.ctx": "codec.latents", "codec.origins": "codec.decode",
+    "codec.recon": "codec.decode",
     "codec.recon.forward": "codec.recon", "codec.recon.extract": "codec.recon",
     "codec.recon.assemble": "codec.recon",
 }
@@ -263,3 +264,73 @@ def test_a_graphed_epoch_records_nothing_while_capturing(monkeypatch):
         steady = trace.summary(name)[1]
         assert steady["count"] == (n if name in ("train.net_grad", "train.adam") else 1)
         assert steady["device_ms"] is not None and steady["device_ms"] > 0, name
+
+
+ENCODE_PARENTS = {
+    "codec.encode.ctx": None, "codec.recon": None,
+    "codec.recon.forward": "codec.recon", "codec.recon.extract": "codec.recon", "codec.recon.assemble": "codec.recon",
+}
+
+
+@pytest.mark.parametrize("mode", ["ctx_ar", "ctx", "channel"])
+def test_the_ctx_coder_gives_its_spans_and_counts(mode):
+    """A 3-block pack of a zero-residual model: in the ctx modes the encode's
+    ``codec.encode.ctx`` (a root, before the encode's ``codec.recon``) and
+    the decode's ``codec.latents.ctx`` (under ``codec.latents``) count the
+    mode, the coding steps (8, or 8 * ch in ctx_ar), the symbols and the
+    tables the decode built; a channel pack has neither."""
+    from benchmark.generators import synthetic_origins
+    from nvfpcc_tpu_torch.config import CodecConfig
+    from nvfpcc_tpu_torch.utils.params import params_to_numpy
+
+    mcfg = ModelConfig(ch=CH, chanstr=CHANSTR, entropy_mode=mode, ctx_hidden=8, ctx_tail=4 if mode == "ctx_ar" else 0)
+    params = params_to_numpy(M.init_params(codec.model_spec(mcfg)))
+    emb = np.random.default_rng(2).normal(0, 3, (3, 2, 2, 2, CH)).astype(np.float32)
+    origins = synthetic_origins(3, 10, 5, 1)
+    ccfg = CodecConfig(thh_encode=0.5, qp=16, depth=10, level=5)
+    with profiled():
+        res = codec.encode(params, emb, origins, mcfg, ccfg, 100, "cpu")
+    records = trace.spans()
+    check_tree(records, ENCODE_PARENTS)
+    assert records[0].name == ("codec.recon" if mode == "channel" else "codec.encode.ctx")
+    assert all(s.request is None for s in records)
+    trace.reset()
+    with profiled():
+        codec.decode(res.pack, "cpu")
+    decode_records = trace.spans()
+    check_tree(decode_records, DECODE_PARENTS)
+    enc, dec = by_name(records).get("codec.encode.ctx", []), by_name(decode_records).get("codec.latents.ctx", [])
+    if mode == "channel":
+        assert enc == [] and dec == []
+        return
+    counts = {"mode": mode, "steps": 8 * CH if mode == "ctx_ar" else 8, "symbols": 3 * 8 * CH}
+    (tables,) = {s.counts["tables"] for s in enc + dec}  # the round trip's and the decode's
+    assert 1 <= tables <= counts["symbols"]
+    assert [s.counts for s in enc] == [{**counts, "clamped": 0, "tables": tables}]
+    assert [s.counts for s in dec] == [{**counts, "tables": tables}]
+
+
+def test_the_ctx_fit_records_a_span_a_phase_and_nothing_while_off(monkeypatch):
+    """``ctx_fit.phase``: one span a phase with its q and steps under a
+    profiler; without one, no span object is made and the store stays
+    empty."""
+    from nvfpcc_tpu_torch.train.ctx_fit import fit_ctx_predictor
+
+    spec = M.build_model_spec(CH, CHANNELS, entropy_mode="ctx_ar", ctx_hidden=8, ctx_tail=4)
+    lat = np.random.default_rng(3).integers(-4, 5, (4, 2, 2, 2, CH))
+    made = []
+    real_on = trace._On
+
+    def counted(*a, **kw):
+        made.append(a[0])
+        return real_on(*a, **kw)
+
+    monkeypatch.setattr(trace, "_On", counted)
+    kw = dict(steps=250, finetune_steps=250, early_stop=0.0, log=lambda s: None)
+    fit_ctx_predictor(spec, lat, "cpu", **kw)
+    assert made == [] and trace.spans() == []
+    with profiled():
+        fit_ctx_predictor(spec, lat, "cpu", **kw)
+    phases = [s for s in trace.spans() if s.name == "ctx_fit.phase"]
+    assert [s.counts for s in phases] == [{"q": 0, "steps": 250}, {"q": 2, "steps": 250}]
+    assert all(s.parent is None and s.host_ns > 0 and s.device_ms() is None for s in phases)
