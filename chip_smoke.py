@@ -8,7 +8,11 @@ its plain version and deterministic cuDNN at each of the decoder's
 transposed layers and the direct convs' input gradients it computes, and
 times each at the main path's batches (128 in f32 for a reconstruction, 16
 and 917 in bf16 for a net step and the embedding update) beside its FFMA or
-bytes bound, its plain version and cuDNN (``library_ms``); then drives the README workflow at the
+bytes bound, its plain version and cuDNN (``library_ms``); holds the
+direct conv kernel against its plain version and deterministic cuDNN at
+every f32 direct layer of the port and times it at 128 and 1,024 blocks
+beside its FFMA bound, its plain version, cuDNN and the transposed conv
+kernel on the flipped weights (ptxas' report beside); then drives the README workflow at the
 flagship width (ch=3, chanstr 8,16,8,8, 32^3 blocks, lambda 200, batch 16,
 channel entropy mode, format-v4 pack) through the port's CLI on a synthetic
 vox10 cloud (1,314 blocks):
@@ -379,6 +383,12 @@ CONV_DGRAD_LAYERS = (("conv1.dgrad", 16, 8, 8, 4, 0), ("conv2.dgrad", 32, 8, 8, 
                      ("conv2_cls.dgrad", 32, 1, 8, 3, 1))
 CONV_BATCHES = (("f32", 128), ("bf16", 16), ("bf16", 917))
 F32_FFMA_PER_S = 67e12
+# the direct conv kernel: every f32 direct conv of the port, (layer, input
+# edge, Cin, Cout, k, padding), at a recon batch and at a flagship decode's
+# 8 batches in one call
+CONV_DIRECT_LAYERS = (("conv1", 19, 8, 8, 4, 0), ("conv2", 35, 8, 8, 4, 0), ("conv2_cls", 32, 8, 1, 3, 1),
+                      ("latent_gen", 2, 3, 3, 1, 0), ("ctx1", 2, 3, 32, 3, 1), ("ctx2", 2, 32, 6, 3, 1))
+CONV_DIRECT_BATCHES = (128, 1024)
 
 
 def phase_conv_kernel(torch, CT) -> dict:
@@ -446,6 +456,96 @@ def phase_conv_kernel(torch, CT) -> dict:
     (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic) = flags
     return {"timed": rows}
+
+
+def ptxas_report(kernel: str) -> list:
+    """ptxas' lines (registers, shared memory, spills) for each
+    instantiation of ``kernel`` in the built library's log."""
+    from nvfpcc_tpu_torch.kernels.build import library_path
+
+    with open(library_path() + ".log") as f:
+        lines = f.read().splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            out.append(" | ".join(x.split("ptxas info    : ")[-1] for x in lines[i:i + 4]))
+    return out
+
+
+def phase_direct_conv_kernel(torch, C3, CT, transposed_rows: list) -> dict:
+    """The direct conv kernel against cuDNN (deterministic, TF32 off) and
+    its plain version at every f32 direct layer of the port, then timed at
+    a recon batch (128) and a flagship decode's 1,024 blocks beside its
+    bound (f32 FFMA operations or bytes, the larger), the plain version,
+    ``library_ms`` (cuDNN's ``aten.convolution``, the port's route before
+    this kernel) and ``transposed_ms`` (the transposed conv kernel on the
+    flipped weights, the same function). ``conv2`` at 128 blocks must take
+    at most half the transposed kernel's time on its shape, conv2's input
+    gradient at 128 blocks in f32 (``transposed_rows``, the transposed
+    conv phase's rows)."""
+    import torch.nn.functional as F
+    from benchmark.counters import taps_1d
+    from nvfpcc_tpu_torch.device import set_numerics
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    set_numerics()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for name, edge, cin, cout, k, pad in CONV_DIRECT_LAYERS:
+        for n in CONV_DIRECT_BATCHES:
+            x = torch.randn((n, edge, edge, edge, cin), generator=gen, device="cuda")
+            w = torch.randn((k, k, k, cin, cout), generator=gen, device="cuda") * 0.1
+            b = torch.randn((cout,), generator=gen, device="cuda")
+            w_flip = w.flip(0, 1, 2).contiguous()
+            kernel = lambda: C3.launch(x, w, b, 1, pad)  # noqa: E731
+            library = lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), b, 1,  # noqa: E731
+                                       pad).permute(0, 2, 3, 4, 1)
+            transposed = lambda: CT.launch(x, w_flip, b, 1, k - 1 - pad, 0)  # noqa: E731
+            got = kernel()
+            want, plain, via_t = library(), C3.conv3d_ref(x[:8], w, b, 1, pad), transposed()
+            torch.cuda.synchronize()
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max()) / scale
+            err_plain = float((got[:8] - plain).abs().max()) / scale
+            err_t = float((via_t - want).abs().max()) / scale
+            if max(err, err_plain, err_t) > 2e-5:
+                fail(f"direct conv kernel {name} n={n}: {err:.3g} from cuDNN, {err_plain:.3g} from the plain "
+                     f"version, the transposed kernel {err_t:.3g} from cuDNN (bound 2e-5 of the largest output)")
+            del want, plain, via_t
+            n_out, pairs = taps_1d("conv", edge, k, 1, pad, 0)
+            macs = pairs**3 * cin * cout * n
+            nbytes = 4 * (x.numel() + w.numel() + got.numel())
+            ops_ms, bytes_ms = 2 * macs / F32_FFMA_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            reps = 20 if n < 900 else 5
+            ms = cuda_ms(kernel, reps)
+            bound = max(ops_ms, bytes_ms)
+            row = {"layer": name, "dtype": "f32", "n": n, "ms": ms, "bound_ms": bound,
+                   "bound_by": "ffma" if ops_ms >= bytes_ms else "bytes", "share_of_bound": bound / ms,
+                   "plain_ms": cuda_ms(lambda: C3.conv3d_ref(x, w, b, 1, pad), 1),
+                   "library_ms": cuda_ms(library, max(2, reps // 4)), "transposed_ms": cuda_ms(transposed, reps),
+                   "ms_again": cuda_ms(kernel, reps), "err_vs_library": err, "err_vs_plain": err_plain,
+                   "plan": C3.plan((edge,) * 3, cin, cout, k, pad)._asdict()}
+            log(f"direct conv kernel {name} f32 n={n}: {ms:.4f} / {row['ms_again']:.4f} ms, bound {bound:.4f} ms "
+                f"({row['bound_by']}, {100 * row['share_of_bound']:.1f}%), plain {row['plain_ms']:.3f} ms, cuDNN "
+                f"{row['library_ms']:.4f} ms, transposed kernel {row['transposed_ms']:.4f} ms, err {err:.2e} / "
+                f"{err_plain:.2e}")
+            rows.append(row)
+            del x, w, w_flip, got
+            torch.cuda.empty_cache()
+    conv2 = next(r for r in rows if r["layer"] == "conv2" and r["n"] == 128)
+    dgrad = next(r for r in transposed_rows if (r["layer"], r["dtype"], r["n"]) == ("conv2.dgrad", "f32", 128))
+    conv2["dgrad_ms"] = dgrad["ms"]
+    log(f"direct conv kernel conv2 f32 n=128: {conv2['ms']:.4f} ms, the transposed kernel {dgrad['ms']:.4f} ms on "
+        f"conv2's shape (its input gradient), {conv2['transposed_ms']:.4f} ms on the flipped weights")
+    if conv2["ms"] > 0.5 * dgrad["ms"]:
+        fail(f"direct conv kernel conv2 f32 n=128: {conv2['ms']:.4f} ms, over half the transposed kernel's "
+             f"{dgrad['ms']:.4f} ms on the same shape")
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic) = flags
+    ptxas = ptxas_report("conv3d_kernel")
+    log("direct conv kernel, ptxas: " + " || ".join(ptxas))
+    return {"timed": rows, "ptxas": ptxas}
 
 
 def train_rows(path: str) -> list:
@@ -1464,6 +1564,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     sys.path.insert(0, ROOT)
     from nvfpcc_tpu_torch.device import card_line
+    from nvfpcc_tpu_torch.kernels import conv3d as C3
     from nvfpcc_tpu_torch.kernels import conv_transpose as CT
     from nvfpcc_tpu_torch.kernels import edt as K
 
@@ -1477,7 +1578,8 @@ def main() -> int:
     # 2-3. kernel build and kernel vs plain
     kstats = phase_kernel(torch, K)
     cstats = phase_conv_kernel(torch, CT)
-    CT.LAUNCHES = 0
+    dstats = phase_direct_conv_kernel(torch, C3, CT, cstats["timed"])
+    CT.LAUNCHES = C3.LAUNCHES = 0
 
     # 4. the serving path at full width
     from scripts.synth_cloud import bumpy_sphere_cloud
@@ -1575,12 +1677,12 @@ def main() -> int:
     # 5. the context-model path on the same grids; its own launch count
     K.LAUNCHES = 0
     t = time.time()
-    cstats = phase_ctx(torch, K, w, len(pts), len(origins))
+    xstats = phase_ctx(torch, K, w, len(pts), len(origins))
     ctx_launches = K.LAUNCHES
     phase_mode_fixture(3, "ctx")
     log(f"ctx path: {time.time() - t:.2f} s, EDT launches {ctx_launches}")
     log("ctx: " + json.dumps({k: ({kk: vv for kk, vv in v.items() if kk != "fit_log"} if isinstance(v, dict) else v)
-                              for k, v in cstats.items()}))
+                              for k, v in xstats.items()}))
     if ctx_launches < 1:
         fail("the ctx path did not launch the EDT kernel")
 
@@ -1675,6 +1777,13 @@ def main() -> int:
         "replaces": None,
         "launches": CT.LAUNCHES,
         **cstats,
+    }, {
+        "name": "conv3d",
+        "route": "cuda",
+        "source": "nvfpcc_tpu_torch/csrc/conv3d.cu",
+        "replaces": None,
+        "launches": C3.LAUNCHES,
+        **dstats,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

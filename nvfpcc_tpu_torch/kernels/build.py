@@ -4,8 +4,8 @@ Every ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` into
 one plain-C shared library under ``nvfpcc_tpu_torch/_build/`` at first use,
 keyed by a hash of the sources and flags, and loaded with ``ctypes``; a
 second process finds the library built and only loads it. The kernel
-wrappers (``kernels/edt.py``, ``kernels/conv_transpose.py``) bind their
-entry points on the one loaded library.
+wrappers (``kernels/edt.py``, ``kernels/conv_transpose.py``,
+``kernels/conv3d.py``) bind their entry points on the one loaded library.
 """
 
 from __future__ import annotations
@@ -84,6 +84,14 @@ def load_library() -> ctypes.CDLL:
                 ctypes.c_int, ctypes.c_int, ctypes.c_int,  # k, stride, padding
                 ctypes.c_void_p, ctypes.c_void_p,  # axes (3 x 6 int32), tables (3 x 4 x MAX_EDGE int16)
                 ctypes.c_int, ctypes.c_int, ctypes.c_int,  # cin chunk, cout tile, phase groups
+                ctypes.c_void_p,  # stream
+            ]
+            lib.nvfpcc_conv3d.restype = ctypes.c_int
+            lib.nvfpcc_conv3d.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, w, bias, out
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # N, Cin, Cout, k, padding
+                ctypes.c_void_p,  # geometry (16 int32)
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # the instantiation: k or 0, COT, R
                 ctypes.c_void_p,  # stream
             ]
             lib.nvfpcc_kernel_error_string.restype = ctypes.c_char_p

@@ -9,14 +9,15 @@ these convs to XLA). On the card it runs the decoder's transposed layers'
 forward (``ConvTranspose3d``) and every direct conv's input gradient
 (``Conv3d``: the transposed conv of the output gradient), both of which
 cuDNN ran as ``dgrad2d_grouped_direct_kernel`` at about 0.2% of the card's
-f32 FFMA rate.
+f32 FFMA rate. ``Conv3d``'s f32 forward is the direct conv kernel
+(``kernels/conv3d.py``).
 
 - A CUDA tensor goes to the hand-written kernel ``csrc/conv_transpose.cu``
   (one launch: a phase-split gather; see the source for the design),
   built into the port's kernel library at first use (``kernels/build.py``)
   and bound with ``ctypes``. f32 and bf16 operands; the sum is f32 and
   rounded once; an f32 bias is added in the kernel's epilogue. Every other
-  pass (the transposed convs' backward, the direct convs' forward and
+  pass (the transposed convs' backward, the direct convs' bf16 forward and
   weight gradient) stays cuDNN, through ``aten.convolution`` and
   ``aten.convolution_backward`` on the operands and memory formats that
   ``F.conv*``'s autograd uses, so its kernels and bits are the ones
@@ -38,6 +39,7 @@ import itertools
 import numpy as np
 import torch
 
+from nvfpcc_tpu_torch.kernels import conv3d
 from nvfpcc_tpu_torch.kernels.build import error_string, load_library
 
 MAX_EDGE = 128  # largest output edge along an axis (the kernel's table size)
@@ -118,23 +120,13 @@ def phase_groups(n: int, boxes: int, cout_tiles: int, stride: int, sm_count: int
     return min(g, nph)
 
 
-def _check(x: torch.Tensor, kernel: torch.Tensor, bias) -> None:
-    if x.ndim != 5 or kernel.ndim != 5:
-        raise ValueError(f"need NDHWC x and DHWIO kernel, got {tuple(x.shape)}, {tuple(kernel.shape)}")
-    k = kernel.shape[0]
-    if kernel.shape[:3] != (k, k, k) or kernel.shape[3] != x.shape[4]:
-        raise ValueError(f"kernel {tuple(kernel.shape)} does not fit x {tuple(x.shape)}")
-    if bias is not None and tuple(bias.shape) != (kernel.shape[4],):
-        raise ValueError(f"bias {tuple(bias.shape)} does not fit kernel {tuple(kernel.shape)}")
-
-
 def launch(x: torch.Tensor, kernel: torch.Tensor, bias, stride: int, padding: int,
            output_padding: int) -> torch.Tensor:
     """One kernel run on the card (no autograd): contiguous NDHWC ``x`` and
     DHWIO ``kernel`` of one dtype (f32 or bf16), an f32 ``bias`` (f32 only)
     or None; returns NDHWC in ``x``'s dtype."""
     global LAUNCHES
-    _check(x, kernel, bias)
+    conv3d.check_operands(x, kernel, bias)
     if x.device.type != "cuda" or kernel.device != x.device:
         raise ValueError(f"the transposed conv kernel needs CUDA tensors, got {x.device}, {kernel.device}")
     if x.dtype not in (torch.float32, torch.bfloat16) or kernel.dtype != x.dtype:
@@ -191,17 +183,21 @@ class ConvTranspose3d(torch.autograd.Function):
 
 
 class Conv3d(torch.autograd.Function):
-    """A direct conv whose data gradient is the kernel: cuDNN runs the
-    forward and the weight and bias gradients (``aten.convolution`` and
-    ``aten.convolution_backward`` on the NCDHW views, as ``F.conv3d``'s
-    autograd does); the input gradient is the transposed conv of the output
-    gradient with the kernel's I and O swapped, at the same stride and
-    padding, and the output padding that gives back the input's edge."""
+    """A direct conv whose data gradient is the kernel: an f32 forward is
+    the direct conv kernel (``kernels/conv3d.py``, stride 1; it raises on
+    any other), any other dtype's cuDNN (``aten.convolution`` on the NCDHW
+    views, as ``F.conv3d``'s autograd runs it); cuDNN runs the weight and
+    bias gradients (``aten.convolution_backward``); the input gradient is
+    the transposed conv of the output gradient with the kernel's I and O
+    swapped, at the same stride and padding, and the output padding that
+    gives back the input's edge."""
 
     @staticmethod
     def forward(ctx, x, kernel, bias, stride: int, padding: int):
         ctx.save_for_backward(x, kernel)
         ctx.conv = (stride, padding, None if bias is None else [bias.shape[0]])
+        if x.dtype == torch.float32:
+            return conv3d.launch(x.contiguous(), kernel.contiguous(), bias, stride, padding)
         y = torch.ops.aten.convolution(x.permute(0, 4, 1, 2, 3), kernel.permute(4, 3, 0, 1, 2), bias,
                                        [stride] * 3, [padding] * 3, [1] * 3, False, [0] * 3, 1)
         return y.permute(0, 2, 3, 4, 1)
@@ -242,7 +238,7 @@ def conv_transpose3d_ref(x: torch.Tensor, kernel: torch.Tensor, bias, stride: in
     (j_d, j_h, j_w), gather the inputs the phase tables name, mask the taps
     that meet no input, and contract over Cin; f32 sums (bf16 operands
     widened), the bias added in f32, rounded once to ``x``'s dtype."""
-    _check(x, kernel, bias)
+    conv3d.check_operands(x, kernel, bias)
     n, cin, cout, k, s = x.shape[0], x.shape[4], kernel.shape[4], kernel.shape[0], stride
     tabs = [torch.from_numpy(phase_tables(e, k, s, padding, output_padding)).to(x.device)
             for e in x.shape[1:4]]

@@ -23,8 +23,10 @@ applied after the seeded init is added back, as the JAX package does.
 
 On a CUDA card the port's hand-written transposed conv kernel
 (``kernels/conv_transpose.py``) runs the transposed convs' forward and the
-direct convs' input gradient (itself a transposed conv); cuDNN the rest.
-On the CPU every conv is ``F.conv3d``/``F.conv_transpose3d``.
+direct convs' input gradient (itself a transposed conv), its direct conv
+kernel (``kernels/conv3d.py``) the direct convs' f32 forward; cuDNN the
+rest (the bf16 direct forward, the weight gradients, the transposed convs'
+backward). On the CPU every conv is ``F.conv3d``/``F.conv_transpose3d``.
 
 Mixed-precision training (``compute_dtype="bf16"``): the master residual,
 the q-phase quantization and the seeded-init add stay f32
@@ -190,9 +192,10 @@ def _run_cuda(fn, x, kernel, b, compute_dtype, *conv):
 
 
 def conv3d_ndhwc(x, kernel, b, stride: int, padding: int, compute_dtype=None) -> torch.Tensor:
-    """Direct conv: NDHWC activation, DHWIO kernel. On a CUDA tensor cuDNN
-    runs the forward and the weight gradient, the port's transposed conv
-    kernel the input gradient (``kernels/conv_transpose.py:Conv3d``)."""
+    """Direct conv: NDHWC activation, DHWIO kernel. On a CUDA tensor the
+    port's direct conv kernel runs an f32 forward (cuDNN a bf16 one), cuDNN
+    the weight gradient, the port's transposed conv kernel the input
+    gradient (``kernels/conv_transpose.py:Conv3d``)."""
     if x.device.type == "cuda":
         return _run_cuda(Conv3d.apply, x, kernel, b, compute_dtype, stride, padding)
     return _run_conv(

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from benchmark.counters import taps_1d
 from nvfpcc_tpu.ops import conv as jconv
 from nvfpcc_tpu.utils import seeds
+from nvfpcc_tpu_torch.kernels import conv3d as C3
 from nvfpcc_tpu_torch.kernels import conv_transpose as CT
 from nvfpcc_tpu_torch.ops import conv as tconv
 
@@ -175,11 +176,14 @@ def test_unsupported_shapes_raise():
 @pytest.mark.parametrize("case", ["transposed", "conv_s1", "conv_s1_same", "conv_s2"])
 @pytest.mark.parametrize("needs", ["all", "input_only", "weight_only"])
 def test_functions_backward_with_plain_kernel(case, needs, monkeypatch, one_thread):
-    """The Functions' backward, with the plain version in the kernel's place:
-    weight and bias gradients bit-equal to ``F.conv*``'s autograd (the same
+    """The Functions' backward, with the plain versions in the kernels'
+    places (the direct conv's f32 forward runs one): weight and bias
+    gradients bit-equal to ``F.conv*``'s autograd (the same
     ``convolution_backward`` call), the input gradient of the direct conv
     (the kernel's transposed conv) within f32 round-off of cuDNN's."""
     monkeypatch.setattr(CT, "launch", CT.conv_transpose3d_ref)
+    forwards = []
+    monkeypatch.setattr(C3, "launch", lambda *a: forwards.append(a) or C3.conv3d_ref(*a))
     g = torch.Generator().manual_seed(7)
     if case == "transposed":
         x, w = torch.randn(2, 4, 4, 4, 8, generator=g), torch.randn(5, 5, 5, 8, 6, generator=g)
@@ -201,6 +205,8 @@ def test_functions_backward_with_plain_kernel(case, needs, monkeypatch, one_thre
     got = torch.autograd.grad(y, leaves, gy)
     want = torch.autograd.grad(want_y, leaves, gy)
     assert y.shape == want_y.shape and y.is_contiguous()
+    assert len(forwards) == (case != "transposed")
+    assert (y - want_y).abs().max() <= F32_TOL * want_y.abs().max()
     for t, a, r in zip(leaves, got, want):
         assert a.shape == t.shape
         if t is x and case != "transposed":

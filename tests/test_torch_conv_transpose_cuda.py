@@ -17,6 +17,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from nvfpcc_tpu_torch.kernels import conv3d as C3
 from nvfpcc_tpu_torch.kernels import conv_transpose as CT
 
 F32_BOUND = 2e-5
@@ -149,8 +150,10 @@ def test_gradients_are_autograds_bits(layer, dtype, needs, card):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("layer", [c[0] for c in DIRECT])
 def test_direct_conv_input_gradient(layer, dtype, card):
-    """``Conv3d``: cuDNN's forward and weight and bias gradients bit for bit;
-    the input gradient from the kernel within the bounds of cuDNN's."""
+    """``Conv3d``: the forward, the direct conv kernel's bits in f32 (within
+    the bound of cuDNN's) and cuDNN's bits in bf16; cuDNN's weight and bias
+    gradients bit for bit; the input gradient from the kernel within the
+    bounds of cuDNN's."""
     _, edge, cin, cout, k, pad = next(c for c in DIRECT if c[0] == layer)
     cd = torch.float32 if dtype == "f32" else torch.bfloat16
     x, w, b = _operands(card, 4, edge, cin, cout, cd, k=k, seed=6)
@@ -160,7 +163,11 @@ def test_direct_conv_input_gradient(layer, dtype, card):
     leaves = [t for t in (x, w, bias) if t is not None]
     y = CT.Conv3d.apply(x, w, bias, 1, pad)
     yr = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), bias, 1, pad).permute(0, 2, 3, 4, 1)
-    assert torch.equal(y, yr)
+    if dtype == "f32":
+        assert torch.equal(y, C3.launch(x.detach(), w.detach(), bias.detach(), 1, pad))
+        assert (y - yr).abs().max() <= F32_BOUND * yr.abs().max()
+    else:
+        assert torch.equal(y, yr)
     gy = torch.randn(y.shape, device=card, generator=torch.Generator(device=card).manual_seed(7)).to(cd)
     before = CT.LAUNCHES
     got = torch.autograd.grad(y, leaves, gy)
