@@ -7,9 +7,11 @@ octree origins of the configuration's blocks, and the threshold at which
 the reference's reconstruction keeps ``n_points`` voxels; the program's
 ``codec.encode`` packs each frame once into a file under ``TMPDIR``, and
 the program decodes each once to warm up. The window is one client in a
-closed loop: each request is ``codec.load_pack`` plus ``codec.decode`` of
-the next frame, until ``--seconds`` have passed, finishing the decode it
-is in. ``decode_ms`` is the window's wall time over its decodes.
+closed loop (``closed_loop.run``): each request is ``codec.load_pack``
+plus ``codec.decode`` of the next frame, timed on its own up to the
+device's finish, until the requests' times add up to ``--seconds``.
+``decode_ms`` is that sum over the decodes; the client's comparison of
+each answer with the ones it keeps, between requests, is outside it.
 
 With ``--trace 1`` the window also times ``codec.reconstruct_points`` and
 the host coders (``codec.load_pack``, ``weights.unpack_weights``,
@@ -19,12 +21,13 @@ after the device's work; after it ``TRACE_DECODES`` more decodes run under
 
 After the window the reference reconstructs every frame in float32 from
 the frame's own residuals, latents and origins, and every decode of the
-window is compared with it (``compare.point_gap``).
+window is compared with it (``compare.point_gap``): the window kept one
+array per distinct answer, and a decode that repeats an earlier one's
+bytes reads that one's gap.
 """
 
 from __future__ import annotations
 
-import hashlib
 import os
 import tempfile
 import time
@@ -32,7 +35,7 @@ import time
 import numpy as np
 import torch
 
-from benchmark import counters, generators, tracing
+from benchmark import closed_loop, counters, generators, tracing
 from benchmark.harness import Outcome
 from benchmark.reference import compare
 from benchmark.reference.nvfpcc import Model, reconstruct
@@ -109,23 +112,16 @@ def run(ctx) -> Outcome:
                  tracing.host_span(W, "unpack_weights", host["unpack_weights"]),
                  tracing.host_span(codec_mod, "decode_latent_pack", host["decode_latent_pack"]),
                  tracing.host_span(codec_mod, "decode_origins", host["decode_origins"])]
-    outputs, marks = [], []
-    t0, t0_wall = time.perf_counter(), time.time()
-    while True:
-        i = len(outputs) % len(paths)
-        points, _ = codec.decode(codec.load_pack(paths[i]), dev)
-        outputs.append((i, points))
-        window_s = time.perf_counter() - t0
-        marks.append(window_s)
-        if window_s >= ctx.seconds:
-            break
+    loop = closed_loop.run(lambda i: codec.decode(codec.load_pack(paths[i]), dev)[0], len(paths), ctx.seconds,
+                          dev, ctx.log)
     for s in spans:
         s.restore()
-    n_dec = len(outputs)
+    n_dec = len(loop.keys)
     n = int(cfg["n_blocks"])
     flops, bytes_ = counters.decode_work(cfg, n, -(-n // 128))
-    obs = {"kind": "decode", "window_s": window_s, "decodes": n_dec, "flops_per_decode": flops,
-           "least_s_per_decode": counters.least_seconds(flops, bytes_, "f32"), "peak_flops": counters.PEAK_FLOPS["f32"]}
+    obs = {"kind": "decode", "window_s": loop.timed_s, "decodes": n_dec,
+           "flops_per_decode": flops, "least_s_per_decode": counters.least_seconds(flops, bytes_, "f32"),
+           "peak_flops": counters.PEAK_FLOPS["f32"]}
     busy_s = stretch_s = breakdown = None
     if ctx.trace:
         obs["recon_ms"] = [1e3 * s for s in recon]
@@ -150,21 +146,14 @@ def run(ctx) -> Outcome:
     # -- the check: every decode of the window against the reference
     t_ref = time.perf_counter()
     refs = [occupancy(model, params, latents, dev).cpu().numpy() for _o, _t, params, latents in frames]
-    gaps, seen = [], {}
-    for i, points in outputs:  # a decode that repeats an earlier one's bytes reads the same gap
-        key = (i, hashlib.sha1(np.ascontiguousarray(points).tobytes()).hexdigest())
-        if key not in seen:
-            seen[key] = compare.point_gap(points, frames[i][0], refs[i], frames[i][1])[0]
-        gaps.append(seen[key])
-    ctx.log(f"[decode] window from {t0_wall:.3f} (host epoch seconds), reference {time.perf_counter() - t_ref:.1f} s, "
-            "decode seconds "
-            f"{[round(b - a, 4) for a, b in zip([0.0] + marks, marks)]}")
+    gaps = loop.gaps(lambda i, points: compare.point_gap(points, frames[i][0], refs[i], frames[i][1])[0])
+    ctx.log(f"[decode] reference {time.perf_counter() - t_ref:.1f} s")
     limit = float(ctx.limits["point_gap"])
     for path in paths:
         os.remove(path)
     os.rmdir(workdir)
     return Outcome(
-        end_to_end={"decode_ms": window_s / n_dec * 1e3, "setup_s": setup_s},
+        end_to_end={"decode_ms": loop.timed_s / n_dec * 1e3, "setup_s": setup_s},
         checks={"point_gap": max(gaps)}, attempted=n_dec, failed=sum(g > limit for g in gaps),
         memory_peak_bytes=peak, obs=obs, busy_s=busy_s, window_s=stretch_s, breakdown=breakdown,
     )

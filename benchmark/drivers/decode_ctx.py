@@ -11,17 +11,19 @@ defaults, the weight rate priced from the frame's ``decoder/wrate``: what
 ``encode --ctx_post`` runs), and its ``codec.encode`` writes the pack
 into a file under ``TMPDIR``. Each pack is decoded once to warm up.
 
-The window is one client in a closed loop, as in ``drivers/decode.py``:
-each request is ``codec.load_pack`` plus ``codec.decode`` of the next
-frame, until ``--seconds`` have passed, finishing the decode it is in;
-``decode_ms`` is the window's wall time over its decodes. With
+The window is one client in a closed loop, as in ``drivers/decode.py``
+(``closed_loop.run``): each request is ``codec.load_pack`` plus
+``codec.decode`` of the next frame, timed on its own up to the device's
+finish, until the requests' times add up to ``--seconds``; ``decode_ms``
+is that sum over the decodes. With
 ``--trace 1``, ``TRACE_DECODES`` more decodes run after the window under
 ``torch.profiler``, the process's only profile; the log gives the tables
 each of their ctx decodes built.
 
 The check: after the window the f32 reference (TF32 off) reconstructs
 every frame from its drawn latents, and every decode of the window is
-compared with it (``compare.point_gap``). A latent the encoder had to
+compared with it (``compare.point_gap``; a decode that repeats an
+earlier one's bytes reads that one's gap). A latent the encoder had to
 clamp to the coder's alphabet is the one place where the coded latents
 may differ from the drawn: the driver asserts that the program's ctx
 encode (``encode_latents_ctx``, whose ``coded`` it catches) changed
@@ -35,7 +37,6 @@ symbols and its stream's bits beside the reference predictor's
 
 from __future__ import annotations
 
-import hashlib
 import os
 import tempfile
 import time
@@ -43,7 +44,7 @@ import time
 import numpy as np
 import torch
 
-from benchmark import counters, generators, tracing
+from benchmark import closed_loop, counters, generators, tracing
 from benchmark.drivers.decode import TRACE_DECODES, frame, occupancy
 from benchmark.harness import Outcome
 from benchmark.reference import compare, ctx_ar
@@ -148,22 +149,15 @@ def run(ctx) -> Outcome:
     setup_s = time.perf_counter() - ctx.t_start
 
     # -- the window
-    outputs, marks = [], []
-    t0, t0_wall = time.perf_counter(), time.time()
-    while True:
-        i = len(outputs) % len(paths)
-        points, _ = codec.decode(codec.load_pack(paths[i]), dev)
-        outputs.append((i, points))
-        window_s = time.perf_counter() - t0
-        marks.append(window_s)
-        if window_s >= ctx.seconds:
-            break
-    n_dec = len(outputs)
+    loop = closed_loop.run(lambda i: codec.decode(codec.load_pack(paths[i]), dev)[0], len(paths), ctx.seconds,
+                          dev, ctx.log)
+    n_dec = len(loop.keys)
     n = int(cfg["n_blocks"])
     # the decoder's chain, which the entropy model does not change (as decoder_model)
     flops, bytes_ = counters.decode_work({**cfg, "entropy_mode": "channel"}, n, -(-n // 128))
-    obs = {"kind": "decode", "window_s": window_s, "decodes": n_dec, "flops_per_decode": flops,
-           "least_s_per_decode": counters.least_seconds(flops, bytes_, "f32"), "peak_flops": counters.PEAK_FLOPS["f32"]}
+    obs = {"kind": "decode", "window_s": loop.timed_s, "decodes": n_dec,
+           "flops_per_decode": flops, "least_s_per_decode": counters.least_seconds(flops, bytes_, "f32"),
+           "peak_flops": counters.PEAK_FLOPS["f32"]}
     busy_s = stretch_s = breakdown = None
     if ctx.trace:
         label = tracing.annotated(codec_mod, "reconstruct_points", "bench.reconstruct_points")
@@ -187,24 +181,17 @@ def run(ctx) -> Outcome:
     # -- the check: every decode of the window against the reference of the drawn latents
     t_ref = time.perf_counter()
     refs = [occupancy(model, fr["params"], fr["latents"], dev).cpu().numpy() for fr in frames]
-    gaps, seen = [], {}
-    for i, points in outputs:  # a decode that repeats an earlier one's bytes reads the same gap
-        key = (i, hashlib.sha1(np.ascontiguousarray(points).tobytes()).hexdigest())
-        if key not in seen:
-            seen[key] = compare.point_gap(points, frames[i]["origins"], refs[i], frames[i]["thh"])[0]
-        gaps.append(seen[key])
+    gaps = loop.gaps(lambda i, points: compare.point_gap(points, frames[i]["origins"], refs[i], frames[i]["thh"])[0])
     for i, fr in enumerate(frames):
         ctx.log(f"[decode_ctx] frame {i}: {fr['clamped']} clamped symbols, stream {stream_bits[i]} bits, "
                 f"reference predictor {reference_bits(cfg, fr, dev):.0f} bits")
-    ctx.log(f"[decode_ctx] window from {t0_wall:.3f} (host epoch seconds), reference "
-            f"{time.perf_counter() - t_ref:.1f} s, decode seconds "
-            f"{[round(b - a, 4) for a, b in zip([0.0] + marks, marks)]}")
+    ctx.log(f"[decode_ctx] reference {time.perf_counter() - t_ref:.1f} s")
     limit = float(ctx.limits["point_gap"])
     for path in paths:
         os.remove(path)
     os.rmdir(workdir)
     return Outcome(
-        end_to_end={"decode_ms": window_s / n_dec * 1e3, "setup_s": setup_s},
+        end_to_end={"decode_ms": loop.timed_s / n_dec * 1e3, "setup_s": setup_s},
         checks={"point_gap": max(gaps)}, attempted=n_dec, failed=sum(g > limit for g in gaps),
         memory_peak_bytes=peak, obs=obs, busy_s=busy_s, window_s=stretch_s, breakdown=breakdown,
     )

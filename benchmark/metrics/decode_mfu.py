@@ -1,6 +1,6 @@
 """The decode window's share of the card's float32 peak: the decoder
-forward's operations of the window's decodes (``counters``) over its wall
-time."""
+forward's operations of the window's decodes (``counters``) over the
+summed time of its requests (``closed_loop``)."""
 
 
 def read(obs):

@@ -23,3 +23,14 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def short_ctx_fits(monkeypatch):
+    """The ctx predictor's fits cut to 250 + 250 steps (the card runs the
+    program's defaults; on the CPU a default fit takes about 25 s)."""
+    from nvfpcc_tpu_torch.train import ctx_fit
+
+    fit = ctx_fit.fit_ctx_predictor
+    monkeypatch.setattr(ctx_fit, "fit_ctx_predictor",
+                        lambda *a, **kw: fit(*a, **{**kw, "steps": 250, "finetune_steps": 250}))

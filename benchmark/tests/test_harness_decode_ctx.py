@@ -39,15 +39,9 @@ def run_small(name="decode.ctx_vox11", seed=2**33 + 17, trace=False):
 
 
 @pytest.fixture(autouse=True)
-def short_fits_few_threads_and_an_empty_store(monkeypatch):
-    """The ctx predictor's fits cut to 250 + 250 steps (the card runs the
-    program's defaults; on the CPU a default fit takes about 25 s)."""
-    from nvfpcc_tpu_torch.train import ctx_fit
+def short_fits_few_threads_and_an_empty_store(short_ctx_fits):
     from nvfpcc_tpu_torch.utils import trace
 
-    fit = ctx_fit.fit_ctx_predictor
-    monkeypatch.setattr(ctx_fit, "fit_ctx_predictor",
-                        lambda *a, **kw: fit(*a, **{**kw, "steps": 250, "finetune_steps": 250}))
     n = torch.get_num_threads()
     torch.set_num_threads(min(n, 4))
     trace.reset()
